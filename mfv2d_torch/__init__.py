@@ -1,0 +1,48 @@
+"""mfv2d_torch: the 2D mimetic spectral element framework in PyTorch.
+
+The port of ``mfv2d_tpu`` to PyTorch and CUDA.  The k-form DSL, compiler,
+mesh and constraints are host NumPy/SciPy; element assembly and residuals
+run as batched float64 tensor work on the device the caller names
+(``device="cpu"`` or ``"cuda"``), with the 1-form mass matrix computed by a
+hand-written CUDA kernel on the GPU.  The steady direct Picard path is
+ported; see ROADMAP.md for what is still to come.
+"""
+
+from mfv2d_torch import examples as examples
+
+# Mesh
+from mfv2d_torch.mesh.manifold import GeoID as GeoID
+from mfv2d_torch.mesh.manifold import Line as Line
+from mfv2d_torch.mesh.manifold import Manifold2D as Manifold2D
+from mfv2d_torch.mesh.manifold import Surface as Surface
+from mfv2d_torch.mesh.quadtree import Mesh as Mesh
+from mfv2d_torch.mimetic import mesh_create as mesh_create
+from mfv2d_torch.mimetic import integrate_over_elements as integrate_over_elements
+
+# K-forms
+from mfv2d_torch.kform import KEquation as KEquation
+from mfv2d_torch.kform import KFormUnknown as KFormUnknown
+from mfv2d_torch.kform import KWeight as KWeight
+from mfv2d_torch.kform import TimeDependent as TimeDependent
+from mfv2d_torch.kform import UnknownFormOrder as UnknownFormOrder
+
+# System / compiler
+from mfv2d_torch.system import ElementFormSpecification as ElementFormSpecification
+from mfv2d_torch.system import KFormSystem as KFormSystem
+from mfv2d_torch.compiler import CompiledSystem as CompiledSystem
+from mfv2d_torch.compiler import system_as_string as system_as_string
+
+# Boundary conditions
+from mfv2d_torch.boundary import BoundaryCondition2DSteady as BoundaryCondition2DSteady
+from mfv2d_torch.boundary import (
+    BoundaryCondition2DUnsteady as BoundaryCondition2DUnsteady,
+)
+
+# Solver
+from mfv2d_torch.solver.solve import ConvergenceSettings as ConvergenceSettings
+from mfv2d_torch.solver.solve import SolutionStatistics as SolutionStatistics
+from mfv2d_torch.solver.solve import SolverSettings as SolverSettings
+from mfv2d_torch.solver.solve import SystemSettings as SystemSettings
+from mfv2d_torch.solver.solve import TimeSettings as TimeSettings
+from mfv2d_torch.solver.solve import VMSSettings as VMSSettings
+from mfv2d_torch.solve_system_2d import solve_system_2d as solve_system_2d

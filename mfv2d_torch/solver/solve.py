@@ -1,0 +1,563 @@
+"""Assembly of the global system and the nonlinear (Picard) solve loop.
+
+Structure mirrors the reference solver (python/mfv2d/solve_system.py): the
+element LHS is assembled once into a frozen saddle-point factorization; each
+iteration re-evaluates the element residual with the current solution (the
+nonlinear terms enter only through the residual — defect correction).  All
+per-element work runs as batched tensor computations over the order buckets
+on the discretization's device; the sparse factorization is host-side
+(SciPy SuperLU).  Each bucket's ``[E, N, N]`` matrices cross to the host once
+per assembly and each residual once per iteration.
+"""
+
+from __future__ import annotations
+
+from collections.abc import Callable, Mapping, Sequence
+from dataclasses import dataclass, field
+
+import numpy as np
+import numpy.typing as npt
+import torch
+
+from mfv2d_torch.boundary import BoundaryCondition2DSteady
+from mfv2d_torch.compiler import CompiledSystem, SystemBlocks
+from mfv2d_torch.continuity import add_system_constraints
+from mfv2d_torch.evaluation import (
+    apply_mass,
+    compute_element_matrices,
+    compute_element_vectors,
+    evaluate_static_fields,
+)
+from mfv2d_torch.kform import (
+    KElementProjection,
+    KFormUnknown,
+    KWeight,
+    UnknownFormOrder,
+)
+from mfv2d_torch.mimetic import vtk_lagrange_ordering
+from mfv2d_torch.progress import ProgressTracker
+from mfv2d_torch.projection import element_dual_dofs
+from mfv2d_torch.solver.discretization import Discretization, OrderBucket
+from mfv2d_torch.system import ElementFormSpecification, KFormSystem
+from mfv2d_torch.utils.lazy import lazy_module
+from mfv2d_torch.vis import VTK_LAGRANGE_QUADRILATERAL, ReconstructedGrid
+
+sp = lazy_module("scipy.sparse")
+sla = lazy_module("scipy.sparse.linalg")
+
+
+@dataclass(frozen=True)
+class ConvergenceSettings:
+    """Convergence criteria of an iterative solver."""
+
+    maximum_iterations: int = 100
+    absolute_tolerance: float = 1e-6
+    relative_tolerance: float = 1e-5
+
+
+@dataclass(frozen=True)
+class SolverSettings:
+    """Nonlinear solver settings (reference solve_system.py:554-601).
+
+    The port runs ``linear_solver="direct"`` (host sparse LU of the frozen
+    saddle matrix, the reference behavior) with ``method="picard"``; the
+    other values of the JAX package are not ported yet and raise.
+    """
+
+    convergence: ConvergenceSettings = ConvergenceSettings()
+    relaxation: float = 1.0
+    linear_solver: str = "direct"
+    method: str = "picard"
+    device_mesh: object | None = None
+    anderson_m: int = 0
+    """Anderson acceleration window for the Picard loop (0 = off, the
+    reference behavior).  With ``m > 0`` each update extrapolates over the
+    last ``m`` (iterate, preconditioned-residual) pairs via a small
+    least-squares problem.  Guarded: an extrapolation with large
+    coefficients falls back to the plain damped update for that
+    iteration."""
+
+
+@dataclass(frozen=True)
+class TimeSettings:
+    """Trapezoidal time-march settings (reference solve_system.py:485-509)."""
+
+    dt: float
+    nt: int
+    time_march_relations: Mapping[KWeight, KFormUnknown]
+    sample_rate: int = 1
+
+
+@dataclass(frozen=True)
+class SystemSettings:
+    """System, boundary conditions, constraints and initial conditions."""
+
+    system: KFormSystem
+    boundary_conditions: Sequence[BoundaryCondition2DSteady] = field(
+        default_factory=tuple
+    )
+    constrained_forms: Sequence[tuple[float, KFormUnknown]] = field(
+        default_factory=tuple
+    )
+    initial_conditions: Mapping[KFormUnknown, Callable] = field(default_factory=dict)
+    over_integration_order: int = 3
+
+
+@dataclass(frozen=True)
+class VMSSettings:
+    """Variational multi-scale fine-scale estimation settings."""
+
+    symmetric_system: KFormSystem
+    nonsymmetric_system: KFormSystem
+    order_increase: int
+    fine_scale_convergence: ConvergenceSettings
+    relaxation: float = 1.0
+    matrix_free: bool | None = None
+    iteration: str = "gmres"
+    inexact_forcing: bool = True
+    anticipate_factor: float = 3.0
+    inexact_eta: float = 0.005
+
+
+@dataclass(frozen=True)
+class SolutionStatistics:
+    """Solve statistics (reference solve_system.py:620-631)."""
+
+    element_orders: dict[tuple[int, int], int]
+    n_total_dofs: int
+    n_leaf_dofs: int
+    n_lagrange: int
+    n_elems: int
+    n_leaves: int
+    iter_history: npt.NDArray[np.uint32]
+    residual_history: npt.NDArray[np.float64]
+
+
+# ---------------------------------------------------------------------------
+# RHS assembly
+# ---------------------------------------------------------------------------
+
+
+def compute_element_rhs_bucket(system: KFormSystem, bucket: OrderBucket) -> np.ndarray:
+    """Explicit forcing projections for one bucket: ``[E, N]``."""
+    p1, p2 = bucket.orders
+    parts: list[np.ndarray] = []
+    for eq in system.equations:
+        n = eq.weight.order.full_unknown_count(p1, p2)
+        acc = np.zeros((bucket.batch.n_elements, n))
+        for k, f in eq.right.explicit_terms:
+            if not isinstance(f, KElementProjection) or f.func is None:
+                continue
+            acc += float(k) * np.asarray(
+                element_dual_dofs(eq.weight.order, bucket.batch, f.func)
+            )
+        parts.append(acc)
+    return np.concatenate(parts, axis=1)
+
+
+def compute_forcing_vector(disc: Discretization, system: KFormSystem) -> np.ndarray:
+    """Global explicit forcing vector over all buckets."""
+    out = np.zeros(disc.n_dofs)
+    for bucket in disc.buckets:
+        out[bucket.gather] = compute_element_rhs_bucket(system, bucket)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Batched residual / matrix evaluation
+# ---------------------------------------------------------------------------
+
+
+def _to_device(values: np.ndarray, bucket: OrderBucket) -> torch.Tensor:
+    return torch.as_tensor(values, dtype=torch.float64, device=bucket.batch.device)
+
+
+class SystemEvaluator:
+    """Per-bucket evaluation of element matrices and residuals.
+
+    Static (callable) interior-product fields are host-evaluated once per
+    bucket; unknown-form fields are reconstructed from the DoFs at each
+    evaluation, so the residual follows the Picard iterate.
+    """
+
+    def __init__(
+        self,
+        form_spec: ElementFormSpecification,
+        compiled: CompiledSystem,
+        disc: Discretization,
+    ) -> None:
+        self.form_spec = form_spec
+        self.compiled = compiled
+        self.disc = disc
+        self._static_fields = [
+            evaluate_static_fields(bucket.batch, compiled.fields)
+            for bucket in disc.buckets
+        ]
+
+    def element_matrices(
+        self, which: SystemBlocks, solution: np.ndarray | None = None
+    ) -> list[np.ndarray]:
+        """Batched element matrices per bucket for the given block set."""
+        out = []
+        for i, bucket in enumerate(self.disc.buckets):
+            dofs = (
+                _to_device(solution[bucket.gather], bucket)
+                if solution is not None
+                else None
+            )
+            mats = compute_element_matrices(
+                self.form_spec,
+                which,
+                bucket.batch,
+                dofs=dofs,
+                static_fields=self._static_fields[i],
+            )
+            out.append(mats.cpu().numpy())
+        return out
+
+    def residual_value(self, solution: np.ndarray) -> np.ndarray:
+        """Element-wise LHS(u) - RHS(u) evaluation, scattered globally."""
+        out = np.zeros(self.disc.n_dofs)
+        for i, bucket in enumerate(self.disc.buckets):
+            dofs = _to_device(solution[bucket.gather], bucket)
+            statics = self._static_fields[i]
+            val = compute_element_vectors(
+                self.form_spec,
+                self.compiled.lhs_blocks,
+                bucket.batch,
+                dofs,
+                static_fields=statics,
+            )
+            if self.compiled.rhs_blocks is not None:
+                val = val - compute_element_vectors(
+                    self.form_spec,
+                    self.compiled.rhs_blocks,
+                    bucket.batch,
+                    dofs,
+                    static_fields=statics,
+                )
+            out[bucket.gather] = val.cpu().numpy()
+        return out
+
+    def element_jacobians(self, solution: np.ndarray) -> list[np.ndarray]:
+        """Exact per-element Jacobians d(LHS - RHS)/du (Newton)."""
+        raise NotImplementedError(
+            "Exact element Jacobians (torch.func) are not ported yet: ROADMAP"
+            " 'Modules still to port', item 4 (Newton on the steady path)."
+        )
+
+    def matrices_per_leaf(self, matrices: list[np.ndarray]) -> list[np.ndarray]:
+        """Reorder per-bucket matrix batches into leaf order."""
+        out: list[np.ndarray | None] = [None] * self.disc.n_leaves
+        for bucket, mats in zip(self.disc.buckets, matrices):
+            for j, rank in enumerate(bucket.leaf_ranks):
+                out[int(rank)] = mats[j]
+        assert all(m is not None for m in out)
+        return out  # type: ignore[return-value]
+
+
+# ---------------------------------------------------------------------------
+# Linear system assembly + factorization
+# ---------------------------------------------------------------------------
+
+
+def compute_linear_system(
+    disc: Discretization,
+    system: KFormSystem,
+    evaluator: SystemEvaluator,
+    constrained_forms: Sequence[tuple[float, KFormUnknown]],
+    boundary_conditions: Sequence[BoundaryCondition2DSteady],
+    initial_solution: np.ndarray | None,
+):
+    """Forcing vector, element matrices, and Lagrange constraint block."""
+    forcing = compute_forcing_vector(disc, system)
+    # Per-leaf views for the in-place weak-BC additions.
+    linear_vectors = [
+        forcing[disc.element_offsets[i] : disc.element_offsets[i + 1]]
+        for i in range(disc.n_leaves)
+    ]
+    matrices = evaluator.element_matrices(
+        evaluator.compiled.lhs_blocks, initial_solution
+    )
+    lagrange_mat, lagrange_vec = add_system_constraints(
+        system,
+        disc.mesh,
+        disc.basis_cache,
+        constrained_forms,
+        boundary_conditions,
+        disc.leaf_indices,
+        disc.element_offsets,
+        linear_vectors,
+    )
+    return forcing, matrices, lagrange_mat, lagrange_vec
+
+
+class FrozenSaddleSolver:
+    """LU factorization of [[A, G^T], [G, 0]] reused across iterations.
+
+    A is block-diagonal over elements.  Host SciPy SuperLU.
+    """
+
+    def __init__(
+        self,
+        element_matrices_per_leaf: list[np.ndarray],
+        lagrange_mat: sp.csr_array | None,
+    ) -> None:
+        main_mat = sp.block_diag(element_matrices_per_leaf, format="csr")
+        if lagrange_mat is not None:
+            main_mat = sp.block_array(
+                ((main_mat, lagrange_mat.T), (lagrange_mat, None)), format="csr"
+            )
+        self.n_lagrange = 0 if lagrange_mat is None else lagrange_mat.shape[0]
+        self._decomp = sla.splu(sp.csc_matrix(main_mat))
+
+    def solve(self, rhs: np.ndarray) -> np.ndarray:
+        return np.asarray(self._decomp.solve(rhs), np.float64)
+
+
+def non_linear_solve_run(
+    max_iterations: int,
+    relax: float,
+    atol: float,
+    rtol: float,
+    print_residual: bool,
+    evaluator: SystemEvaluator,
+    explicit_vec: np.ndarray,
+    solution: np.ndarray,
+    global_lagrange: np.ndarray,
+    max_mag: float,
+    solver: FrozenSaddleSolver,
+    lagrange_mat: sp.csr_array | None,
+    return_all_residuals: bool = False,
+    anderson_m: int = 0,
+):
+    """Picard / defect-correction iteration (reference solve_system.py:354).
+
+    residual = forcing - (LHS(u) - RHS(u)) - G^T lambda; update = frozen-LU
+    solve of the residual.
+    """
+    from mfv2d_torch.tracing import tracer
+
+    progress_tracker: ProgressTracker | None = None
+    iter_cnt = 0
+    # Anderson acceleration (type II) over the damped-Picard fixed point
+    # x_{k+1} = x_k + relax * P^{-1} r(x_k): keep the last m (iterate,
+    # step) pairs and extrapolate via a small least-squares problem.
+    use_aa = anderson_m > 0
+    aa_x: list[np.ndarray] = []
+    aa_f: list[np.ndarray] = []
+    base_vec = np.array(explicit_vec, copy=True)
+    residuals = np.zeros(max_iterations)
+    max_residual = 0.0
+
+    while iter_cnt < max_iterations:
+        with tracer.stage("picard-residual"):
+            main_value = evaluator.residual_value(solution)
+        if lagrange_mat is not None:
+            main_value = main_value + lagrange_mat.T @ global_lagrange
+            main_value = np.concatenate((main_value, lagrange_mat @ solution))
+
+        residual = base_vec - main_value
+        max_residual = float(np.abs(residual).max())
+        residuals[iter_cnt] = max_residual
+        if print_residual:
+            if progress_tracker is None:
+                progress_tracker = ProgressTracker(
+                    atol, max_residual, max_residual, max_iterations, err_width=20
+                )
+            else:
+                progress_tracker.update_iteration(max_residual)
+            import sys as _sys
+
+            _end = "\r" if _sys.stdout.isatty() else "\n"
+            print(progress_tracker.state_str("{} - {} | {}"), end=_end, flush=True)
+
+        if not (max_residual > atol and max_residual > max_mag * rtol):
+            break
+
+        with tracer.stage("picard-solve"):
+            d_solution = solver.solve(residual)
+        n_lag = global_lagrange.size
+        if use_aa:
+            x_k = (
+                np.concatenate((solution, global_lagrange))
+                if n_lag
+                else np.array(solution)
+            )
+            f_k = relax * np.asarray(d_solution)
+            # Residual growth means the local linearization shifted; stale
+            # pairs then extrapolate the wrong map — restart the window.
+            if iter_cnt >= 1 and residuals[iter_cnt] > residuals[iter_cnt - 1]:
+                aa_x.clear()
+                aa_f.clear()
+            aa_x.append(x_k)
+            aa_f.append(f_k)
+            if len(aa_x) > anderson_m + 1:
+                aa_x.pop(0)
+                aa_f.pop(0)
+            x_new = x_k + f_k
+            if len(aa_f) > 1:
+                df = np.stack(
+                    [aa_f[i + 1] - aa_f[i] for i in range(len(aa_f) - 1)], axis=1
+                )
+                dx = np.stack(
+                    [aa_x[i + 1] - aa_x[i] for i in range(len(aa_x) - 1)], axis=1
+                )
+                gamma, *_ = np.linalg.lstsq(df, f_k, rcond=1e-10)
+                # Large coefficients signal near-singular differences —
+                # extrapolating there amplifies noise; take the plain step.
+                if np.abs(gamma).max() <= 25.0:
+                    x_new = x_k + f_k - (dx + df) @ gamma
+            if n_lag:
+                solution = x_new[:-n_lag]
+                global_lagrange = x_new[-n_lag:]
+            else:
+                solution = x_new
+        elif n_lag:
+            solution = solution + relax * d_solution[:-n_lag]
+            global_lagrange = global_lagrange + relax * d_solution[-n_lag:]
+        else:
+            solution = solution + relax * d_solution
+        iter_cnt += 1
+
+    if not return_all_residuals:
+        return solution, global_lagrange, iter_cnt, np.array(max_residual)
+    return solution, global_lagrange, iter_cnt, residuals
+
+
+# ---------------------------------------------------------------------------
+# Initial conditions
+# ---------------------------------------------------------------------------
+
+
+def compute_element_primal_from_dual_global(
+    disc: Discretization, dual: np.ndarray
+) -> np.ndarray:
+    """Apply the per-form inverse mass matrices to the whole vector."""
+    out = np.zeros_like(dual)
+    for bucket in disc.buckets:
+        out[bucket.gather] = (
+            apply_mass(
+                disc.form_spec,
+                bucket.batch,
+                _to_device(dual[bucket.gather], bucket),
+                inverse=True,
+            )
+            .cpu()
+            .numpy()
+        )
+    return out
+
+
+def compute_initial_solution(
+    disc: Discretization,
+    system: KFormSystem,
+    initial_conditions: Mapping[KFormUnknown, Callable],
+) -> tuple[np.ndarray, np.ndarray]:
+    """Project initial conditions: returns (dual dofs, primal dofs)."""
+    dual = np.zeros(disc.n_dofs)
+    for bucket in disc.buckets:
+        p1, p2 = bucket.orders
+        offsets = disc.form_spec.form_offsets(p1, p2)
+        parts = []
+        for i, form in enumerate(disc.form_spec.iter_forms()):
+            n = offsets[i + 1] - offsets[i]
+            func = initial_conditions.get(form)
+            if func is None:
+                parts.append(np.zeros((bucket.batch.n_elements, n)))
+            else:
+                parts.append(
+                    np.asarray(element_dual_dofs(form.order, bucket.batch, func))
+                )
+        dual[bucket.gather] = np.concatenate(parts, axis=1)
+    primal = compute_element_primal_from_dual_global(disc, dual)
+    return dual, primal
+
+
+# ---------------------------------------------------------------------------
+# Output reconstruction
+# ---------------------------------------------------------------------------
+
+
+def reconstruct_mesh_from_solution(
+    disc: Discretization,
+    recon_order: int | None,
+    solution: np.ndarray,
+) -> ReconstructedGrid:
+    """Sample every form on a per-element nodal grid (VTK Lagrange cells).
+
+    Reconstruction is vectorized per order bucket (reconstruct_batched) on
+    the host.
+    """
+    from mfv2d_torch.projection import reconstruct_batched
+
+    form_spec = disc.form_spec
+    n_leaves = disc.n_leaves
+    per_leaf_points: list[np.ndarray | None] = [None] * n_leaves
+    per_leaf_forms: list[dict | None] = [None] * n_leaves
+    order_list = [tuple(int(v) for v in disc.element_orders[i]) for i in range(n_leaves)]
+
+    for bucket in disc.buckets:
+        p1, p2 = bucket.orders
+        ro = max(p1, p2) if recon_order is None else recon_order
+        nodes = np.linspace(-1.0, 1.0, ro + 1)
+        xi = nodes[None, :]
+        eta = nodes[:, None]
+        corners = bucket.batch.corners_np
+        e = corners.shape[0]
+        # Physical points via bilinear interpolation (NumPy).
+        b11 = (1 - xi) / 2
+        b12 = (1 + xi) / 2
+        b21 = (1 - eta) / 2
+        b22 = (1 + eta) / 2
+        cx = corners[..., 0][:, :, None, None]
+        cy = corners[..., 1][:, :, None, None]
+        ex = (cx[:, 0] * b11 + cx[:, 1] * b12) * b21 + (
+            cx[:, 3] * b11 + cx[:, 2] * b12
+        ) * b22
+        ey = (cy[:, 0] * b11 + cy[:, 1] * b12) * b21 + (
+            cy[:, 3] * b11 + cy[:, 2] * b12
+        ) * b22
+
+        dofs = np.asarray(solution)[bucket.gather]
+        basis = bucket.batch.basis
+        offsets = form_spec.form_offsets(p1, p2)
+        form_vals = {}
+        for idx, (name, order) in enumerate(form_spec):
+            fd = dofs[:, offsets[idx] : offsets[idx + 1]]
+            vals = reconstruct_batched(corners, basis, order, fd, xi, eta)
+            shape = (e, -1, 2) if order == UnknownFormOrder.FORM_ORDER_1 else (e, -1)
+            form_vals[name] = np.reshape(vals, shape)
+
+        for j, rank in enumerate(bucket.leaf_ranks):
+            rank = int(rank)
+            per_leaf_points[rank] = np.stack(
+                [ex[j].ravel(), ey[j].ravel()], axis=1
+            )
+            per_leaf_forms[rank] = {k: v[j] for k, v in form_vals.items()}
+
+    cell_arrays: list[np.ndarray] = []
+    node_cnt = 0
+    xy_parts: list[np.ndarray] = []
+    build: dict[str, list[np.ndarray]] = {n: [] for n in form_spec.names}
+    for rank in range(n_leaves):
+        p1, p2 = order_list[rank]
+        ro = max(p1, p2) if recon_order is None else recon_order
+        ordering = vtk_lagrange_ordering(ro).astype(np.int64) + node_cnt
+        cell_arrays.append(np.concatenate(((ordering.size,), ordering)))
+        node_cnt += ordering.size
+        xy_parts.append(per_leaf_points[rank])
+        for name in form_spec.names:
+            build[name].append(per_leaf_forms[rank][name])
+
+    xy = np.concatenate(xy_parts, axis=0)
+    points = np.concatenate([xy, np.zeros((node_cnt, 1))], axis=1)
+    grid = ReconstructedGrid(
+        points=points,
+        cells=np.concatenate(cell_arrays).astype(np.int64),
+        cell_types=np.full(n_leaves, VTK_LAGRANGE_QUADRILATERAL, np.uint8),
+    )
+    for name in build:
+        grid.point_data[name] = np.concatenate(build[name], axis=0)
+    grid.cell_data["orders"] = np.array(order_list)
+    return grid
