@@ -6,12 +6,22 @@ Run from the repository root:  python3 chip_smoke.py
 Phases (each ends in torch.cuda.synchronize(); any failure exits non-zero):
 
 0. card, power limit, torch/CUDA/nvcc versions; exit 1 without a GPU
-1. build the M1 kernel (csrc/mass_edge.cu) for sm_90a
-2. kernel vs its plain PyTorch version on the card, f64 and f32, and their
-   median times at p=4, E=4096
-3. the golden 4x4 p=3 mixed-Poisson solution on the card
+1. build both kernels (csrc/mass_edge.cu, csrc/gj_inverse.cu) for sm_90a,
+   one nvcc each, started together
+2. M1 kernel vs its plain PyTorch version on the card, f64 and f32, and
+   their median times at p=4, E=4096
+3. the golden 4x4 p=3 mixed-Poisson solution on the card, through the
+   direct, static-condensation, dense and Schur CG solvers
 4. the main path at size: steady mixed Poisson, 64x64 mesh, p=4
 5. nonlinear Picard: steady Navier-Stokes Re=10, 16x16 mesh, p=5
+6. batched-inverse kernel vs its plain version on the card: saddle
+   matrices and real element blocks, f64 and f32, both kernel routes, a
+   singular batch, and median times at n=56 and n=208, E=4096
+7. Schur CG at size: mixed Poisson 64x64 p=4, linear_solver="schur"
+8. static condensation at size: mixed Poisson 64x64 p=8,
+   linear_solver="schur_direct"
+9. nonlinear Picard through static condensation: phase 5's setup with
+   linear_solver="schur_direct"
 
 The line before the last is the kernel report (JSON), the last line the
 device summary (JSON).
@@ -24,6 +34,7 @@ import shutil
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -34,6 +45,9 @@ BASE = np.array([(-1.0, -1.0), (1.0, -1.0), (1.0, 1.0), (-1.0, 1.0)])
 KERNEL_ORDERS = [(2, 2), (4, 4), (3, 5), (8, 8)]
 KERNEL_SIZES = [1, 1000, 4096]
 KERNEL_TOL = {torch.float64: 1e-12, torch.float32: 1e-5}
+INVERSE_SIZES = [1, 56, 121, 168, 208, 289]
+INVERSE_BATCHES = [1, 1000, 4096]
+INVERSE_TOL = {torch.float64: 1e-10, torch.float32: 1e-3}
 
 
 def rel_err(mine, ref) -> float:
@@ -68,16 +82,20 @@ def phase0_device() -> None:
 
 
 def phase1_build() -> None:
-    from mfv2d_torch.ops.kernels import _build, mass_edge
+    from mfv2d_torch.ops.kernels import _build, gj_inverse, mass_edge
 
     t0 = time.perf_counter()
-    mass_edge.library()
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        builds = [pool.submit(k.library) for k in (mass_edge, gj_inverse)]
+        for build in builds:
+            build.result()
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    print(f"phase 1: built mass_edge.cu in {seconds:.2f} s")
-    for line in _build.build_logs.get("mass_edge", "").splitlines():
-        if "registers" in line or "spill" in line:
-            print("  ptxas:", line.strip())
+    print(f"phase 1: built mass_edge.cu and gj_inverse.cu in {seconds:.2f} s")
+    for name in ("mass_edge", "gj_inverse"):
+        for line in _build.build_logs.get(name, "").splitlines():
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
+                print(f"  ptxas {name}:", line.strip())
 
 
 def _kernel_inputs(orders, e, dtype, seed):
@@ -142,7 +160,9 @@ def phase3_golden() -> None:
     from mfv2d_torch.compiler import CompiledSystem
     from mfv2d_torch.ops.basis import FemCache
     from mfv2d_torch.solver.discretization import discretize_mesh
+    from mfv2d_torch.solver.iterative import DenseSaddleSolver, IterativeSaddleSolver
     from mfv2d_torch.solver.solve import (
+        ConvergenceSettings,
         FrozenSaddleSolver,
         SystemEvaluator,
         compute_linear_system,
@@ -167,20 +187,39 @@ def phase3_golden() -> None:
     forcing, matrices, lagrange_mat, lagrange_vec = compute_linear_system(
         disc, system, evaluator, [], [], None
     )
-    solver = FrozenSaddleSolver(evaluator.matrices_per_leaf(matrices), lagrange_mat)
+    n_lag = lagrange_mat.shape[0]
     explicit_vec = np.concatenate((forcing, lagrange_vec))
-    solution, _, _, _ = non_linear_solve_run(
-        20, 1.0, 1e-12, 0.0, False, evaluator, explicit_vec,
-        np.zeros(disc.n_dofs), np.zeros(lagrange_mat.shape[0]),
-        float(np.abs(explicit_vec).max()), solver, lagrange_mat,
-    )
-    torch.cuda.synchronize()
+    inner = ConvergenceSettings(max(200, 4 * (disc.n_dofs + n_lag)), 1e-15, 1e-12)
+    solvers = {
+        "direct": (
+            lambda: FrozenSaddleSolver(evaluator.matrices_per_leaf(matrices), lagrange_mat),
+            1e-10,
+        ),
+        "schur_direct": (
+            lambda: IterativeSaddleSolver(
+                disc, matrices, lagrange_mat, inner, method="schur_direct"
+            ),
+            1e-10,
+        ),
+        "dense": (lambda: DenseSaddleSolver(disc, matrices, lagrange_mat), 1e-10),
+        "schur": (
+            lambda: IterativeSaddleSolver(disc, matrices, lagrange_mat, inner, method="schur"),
+            1e-8,
+        ),
+    }
     fixture = np.load(ROOT / "tests" / "golden" / "reference_fixtures.npz")
     ref = fixture["solution_mixed_poisson_4x4_p3"]
-    err = float(np.abs(solution - ref).max() / np.abs(ref).max())
-    print(f"phase 3: golden 4x4 p=3 mixed Poisson rel err {err:.3e}")
-    if not err <= 1e-10:
-        raise RuntimeError(f"golden solution disagrees: {err:.3e} > 1e-10")
+    for name, (make, tol) in solvers.items():
+        solution, _, _, _ = non_linear_solve_run(
+            20, 1.0, 1e-12, 0.0, False, evaluator, explicit_vec,
+            np.zeros(disc.n_dofs), np.zeros(n_lag),
+            float(np.abs(explicit_vec).max()), make(), lagrange_mat,
+        )
+        torch.cuda.synchronize()
+        err = float(np.abs(solution - ref).max() / np.abs(ref).max())
+        print(f"phase 3: golden 4x4 p=3 mixed Poisson, {name}: rel err {err:.3e}")
+        if not err <= tol:
+            raise RuntimeError(f"golden solution ({name}) disagrees: {err:.3e} > {tol:.0e}")
 
 
 def _l2_point_error(grid, name, exact) -> float:
@@ -229,10 +268,10 @@ def phase4_main_path() -> int:
     return launches
 
 
-def phase5_picard() -> None:
+def _navier_stokes(linear_solver: str) -> tuple[int, float, float]:
+    """Phase 5's Navier-Stokes solve; returns iterations, velocity error, wall."""
     import mfv2d_torch as mf
     from mfv2d_torch.models import flow
-    from mfv2d_torch.ops.kernels import mass_edge
 
     model = flow.navier_stokes(10.0)
     mesh = mf.examples.unit_square_mesh(16, 16, 5)
@@ -240,13 +279,14 @@ def phase5_picard() -> None:
         model.velocity, mesh.boundary_indices, flow.ns_velocity_exact
     )
     max_iter, atol = 80, 1e-8
-    mass_edge.launches = 0
     t0 = time.perf_counter()
     grids, stats, _ = mf.solve_system_2d(
         mesh,
         mf.SystemSettings(model.system, [bc], [(0.0, model.pressure)]),
         mf.SolverSettings(
-            mf.ConvergenceSettings(max_iter, atol, 0.0), relaxation=0.7
+            mf.ConvergenceSettings(max_iter, atol, 0.0),
+            relaxation=0.7,
+            linear_solver=linear_solver,
         ),
         recon_order=10,
         device="cuda",
@@ -255,17 +295,226 @@ def phase5_picard() -> None:
     wall = time.perf_counter() - t0
     iters = int(stats.iter_history[-1])
     err = _l2_point_error(grids[-1], "vel", flow.ns_velocity_exact)
+    if iters >= max_iter:
+        raise RuntimeError(f"Navier-Stokes Picard ({linear_solver}) did not converge")
+    if not err <= 1e-8:
+        raise RuntimeError(f"Navier-Stokes velocity error {err:.3e} > 1e-8")
+    return iters, err, wall
+
+
+def phase5_picard() -> int:
+    from mfv2d_torch.ops.kernels import mass_edge
+
+    mass_edge.launches = 0
+    iters, err, wall = _navier_stokes("direct")
     print(
         f"phase 5: Navier-Stokes Re=10 16x16 p=5: {iters} Picard iterations,"
         f" velocity error {err:.3e}, wall {wall:.3f} s,"
         f" mass_edge launches {mass_edge.launches}"
     )
-    if iters >= max_iter:
-        raise RuntimeError("Navier-Stokes Picard did not converge")
-    if not err <= 1e-8:
-        raise RuntimeError(f"Navier-Stokes velocity error {err:.3e} > 1e-8")
     if mass_edge.launches <= 0:
         raise RuntimeError("the Picard path did not launch the mass_edge kernel")
+    return iters
+
+
+def _saddle_pool(n: int, count: int, seed: int) -> np.ndarray:
+    """``count`` saddle matrices ``[[M, B^T], [B, 0]]`` of size n: M SPD with
+    eigenvalues in [1, 10], B of full row rank with singular values in
+    [1, 3].  Every other one is symmetrically permuted, so the zero block's
+    diagonal entries land anywhere."""
+    rng = np.random.default_rng(seed)
+    n_b = n // 3
+    n_m = n - n_b
+    out = np.empty((count, n, n))
+    for c in range(count):
+        q, _ = np.linalg.qr(rng.normal(size=(n_m, n_m)))
+        m = (q * rng.uniform(1.0, 10.0, n_m)) @ q.T
+        v, _ = np.linalg.qr(rng.normal(size=(n_m, n_m)))
+        b = rng.uniform(1.0, 3.0, n_b)[:, None] * v[:n_b]
+        k = np.block([[m, b.T], [b, np.zeros((n_b, n_b))]])
+        if c % 2:
+            perm = rng.permutation(n)
+            k = k[perm][:, perm]
+        out[c] = k
+    return out
+
+
+def _element_blocks(model_system, mesh) -> np.ndarray:
+    """The first bucket's element matrices of a steady system on the card."""
+    from mfv2d_torch.compiler import CompiledSystem
+    from mfv2d_torch.ops.basis import FemCache
+    from mfv2d_torch.solver.discretization import discretize_mesh
+    from mfv2d_torch.solver.solve import SystemEvaluator
+
+    compiled = CompiledSystem(model_system)
+    disc = discretize_mesh(mesh, model_system.unknown_forms, FemCache(3), device="cuda")
+    evaluator = SystemEvaluator(disc.form_spec, compiled, disc)
+    return evaluator.element_matrices(compiled.lhs_blocks)[0]
+
+
+def phase6_inverse_vs_plain() -> dict:
+    import mfv2d_torch as mf
+    from mfv2d_torch.models import flow, poisson
+    from mfv2d_torch.ops.kernels import gj_inverse
+    from mfv2d_torch.ops.precision import gj_inverse_plain
+
+    cases = {}
+    for n in INVERSE_SIZES:
+        pool = _saddle_pool(n, 16, seed=n)
+        cond = max(np.linalg.cond(k) for k in pool)
+        route = "shared" if gj_inverse.uses_shared_memory(n, torch.float64) else "global"
+        route32 = "shared" if gj_inverse.uses_shared_memory(n, torch.float32) else "global"
+        print(f"  saddle n={n:3d}: max cond {cond:.3e}, route f64 {route}, f32 {route32}")
+        if not cond <= 1e4:
+            raise RuntimeError(f"saddle inputs too ill-conditioned: {cond:.3e}")
+        pool = torch.tensor(pool, device="cuda")
+        for e in INVERSE_BATCHES:
+            if n == 289 and e > 1000:
+                e = 1000
+            reps = -(-e // pool.shape[0])
+            cases[f"saddle n={n} E={e}"] = pool.repeat(reps, 1, 1)[:e].contiguous()
+    poisson_blocks = _element_blocks(
+        poisson.mixed_poisson().system, mf.examples.unit_square_mesh(64, 64, 4)
+    )
+    ns_blocks = _element_blocks(
+        flow.navier_stokes(10.0).system, mf.examples.unit_square_mesh(16, 16, 5)
+    )
+    for name, blocks in (("phase-7 blocks", poisson_blocks), ("phase-9 blocks", ns_blocks)):
+        print(f"  {name}: {blocks.shape}, cond of block 0 {np.linalg.cond(blocks[0]):.3e}")
+        cases[f"{name} n={blocks.shape[1]} E={blocks.shape[0]}"] = torch.tensor(
+            blocks, device="cuda"
+        )
+
+    max_abs = 0.0
+    for dtype, tol in INVERSE_TOL.items():
+        for name, a64 in cases.items():
+            a = a64.to(dtype)
+            out = gj_inverse.gj_inverse(a)
+            ref = gj_inverse_plain(a)
+            torch.cuda.synchronize()
+            if out.shape != ref.shape or out.dtype != dtype:
+                raise RuntimeError(f"kernel output {out.shape} {out.dtype}")
+            err = rel_err(out, ref)
+            if dtype == torch.float64:
+                max_abs = max(max_abs, float((out - ref).abs().max()))
+            print(f"  {str(dtype):14s} {name:28s} rel err {err:.3e}")
+            if not err <= tol:
+                raise RuntimeError(f"inverse kernel disagrees: {err:.3e} > {tol:.0e}")
+
+    for dtype in INVERSE_TOL:
+        singular = cases["saddle n=56 E=1000"][:8].to(dtype).clone()
+        singular[5, :, 17] = 0.0
+        try:
+            gj_inverse.gj_inverse(singular)
+        except torch.linalg.LinAlgError as exc:
+            print(f"  singular batch ({dtype}) raised: {exc}")
+            if "matrix 5 " not in str(exc):
+                raise RuntimeError("the singular batch named the wrong matrix") from exc
+        else:
+            raise RuntimeError("a singular batch did not raise")
+
+    timing = {}
+    for n in (56, 208):
+        a = cases[f"saddle n={n} E=4096"]
+        ms = _median_ms(lambda: gj_inverse.gj_inverse(a))
+        plain_ms = _median_ms(lambda: gj_inverse_plain(a))
+        torch.cuda.synchronize()
+        print(
+            f"phase 6: inverse kernel agrees; n={n} E=4096 f64 median: kernel"
+            f" {ms:.4f} ms, plain {plain_ms:.4f} ms"
+        )
+        timing[n] = (ms, plain_ms)
+    ms, plain_ms = timing[56]
+    return {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms}
+
+
+def _mixed_poisson_at_size(n: int, p: int, linear_solver: str, phase: int) -> None:
+    import mfv2d_torch as mf
+    from mfv2d_torch.models import poisson
+    from mfv2d_torch.tracing import tracer
+
+    model = poisson.mixed_poisson()
+    mesh = mf.examples.unit_square_mesh(n, n, p)
+    tracer.enable()
+    tracer.reset()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    grids, stats, _ = mf.solve_system_2d(
+        mesh,
+        mf.SystemSettings(model.system),
+        mf.SolverSettings(linear_solver=linear_solver),
+        recon_order=p,
+        device="cuda",
+    )
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    tracer.disable()
+    err = _l2_point_error(grids[-1], "u", poisson.u_exact)
+    print(
+        f"phase {phase}: mixed Poisson {n}x{n} p={p} {linear_solver}:"
+        f" {stats.n_total_dofs} unknowns ({stats.n_lagrange} multipliers),"
+        f" {int(stats.iter_history[-1])} Picard iterations, L2 point error"
+        f" {err:.3e}, wall {wall:.3f} s"
+    )
+    for name, (calls, total) in sorted(tracer.stages.items(), key=lambda kv: -kv[1][1]):
+        print(f"  stage {name:28s} {total:9.4f} s ({calls} calls)")
+    print(f"  max_memory_allocated {torch.cuda.max_memory_allocated()} bytes")
+    if not err <= 1e-8:
+        raise RuntimeError(f"mixed Poisson error {err:.3e} > 1e-8")
+
+
+def _require_launches(phase: int, **counts: int) -> None:
+    print(f"  launches: {counts}")
+    for name, count in counts.items():
+        if count <= 0:
+            raise RuntimeError(f"phase {phase} did not launch the {name} kernel")
+
+
+def phase7_schur_cg() -> int:
+    from mfv2d_torch.ops.kernels import gj_inverse, mass_edge
+    from mfv2d_torch.solver import iterative
+
+    cg_iterations = []
+    cg_general = iterative.cg_general
+
+    def counting_cg(*args, **kwargs):
+        x, residual, iters = cg_general(*args, **kwargs)
+        cg_iterations.append(iters)
+        return x, residual, iters
+
+    iterative.cg_general = counting_cg
+    gj_inverse.launches = 0
+    mass_edge.launches = 0
+    try:
+        _mixed_poisson_at_size(64, 4, "schur", phase=7)
+    finally:
+        iterative.cg_general = cg_general
+    print(f"  trace CG iterations per solve: {cg_iterations}")
+    _require_launches(7, gj_inverse=gj_inverse.launches, mass_edge=mass_edge.launches)
+    return gj_inverse.launches
+
+
+def phase8_static_condensation() -> None:
+    from mfv2d_torch.ops.kernels import gj_inverse
+
+    gj_inverse.launches = 0
+    _mixed_poisson_at_size(64, 8, "schur_direct", phase=8)
+    _require_launches(8, gj_inverse=gj_inverse.launches)
+
+
+def phase9_picard_condensed(direct_iterations: int) -> None:
+    from mfv2d_torch.ops.kernels import gj_inverse
+
+    gj_inverse.launches = 0
+    iters, err, wall = _navier_stokes("schur_direct")
+    print(
+        f"phase 9: Navier-Stokes Re=10 16x16 p=5 schur_direct: {iters} Picard"
+        f" iterations (direct: {direct_iterations}), velocity error {err:.3e},"
+        f" wall {wall:.3f} s"
+    )
+    _require_launches(9, gj_inverse=gj_inverse.launches)
+    if abs(iters - direct_iterations) > 1:
+        raise RuntimeError("schur_direct Picard iterations differ from direct by > 1")
 
 
 def main() -> int:
@@ -273,10 +522,14 @@ def main() -> int:
 
     phase0_device()
     phase1_build()
-    timing = phase2_kernel_vs_plain()
+    mass_timing = phase2_kernel_vs_plain()
     phase3_golden()
-    launches = phase4_main_path()
-    phase5_picard()
+    mass_launches = phase4_main_path()
+    direct_iterations = phase5_picard()
+    inverse_timing = phase6_inverse_vs_plain()
+    inverse_launches = phase7_schur_cg()
+    phase8_static_condensation()
+    phase9_picard_condensed(direct_iterations)
     report = {
         "kernels": [
             {
@@ -284,9 +537,17 @@ def main() -> int:
                 "route": "cuda",
                 "source": "mfv2d_torch/csrc/mass_edge.cu",
                 "replaces": "mfv2d_tpu/ops/pallas_mass.py:113",
-                "launches": launches,
-                **timing,
-            }
+                "launches": mass_launches,
+                **mass_timing,
+            },
+            {
+                "name": "gj_inverse",
+                "route": "cuda",
+                "source": "mfv2d_torch/csrc/gj_inverse.cu",
+                "replaces": "mfv2d_tpu/ops/pallas_factor.py:136",
+                "launches": inverse_launches,
+                **inverse_timing,
+            },
         ]
     }
     print(json.dumps(report))

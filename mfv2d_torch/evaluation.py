@@ -43,6 +43,7 @@ from mfv2d_torch.ops.incidence import (
     INCIDENCE_E21_T,
     incidence_matrix,
 )
+from mfv2d_torch.ops.kernels import gj_inverse as gj_inverse_kernel
 from mfv2d_torch.ops.kernels import mass_edge as mass_edge_kernel
 from mfv2d_torch.ops.mass import (
     TensorBasis,
@@ -63,7 +64,10 @@ def _mass_solve(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def _mass_inverse(a: torch.Tensor) -> torch.Tensor:
-    """Batched inverse of mass matrices (see _mass_solve)."""
+    """Batched inverse of mass matrices: the pivoted Gauss-Jordan kernel on
+    CUDA tensors, a solve against the identity (see _mass_solve) on the CPU."""
+    if a.device.type == "cuda":
+        return gj_inverse_kernel.gj_inverse(a.contiguous())
     eye = torch.eye(a.shape[-1], dtype=a.dtype, device=a.device).expand(a.shape)
     return _mass_solve(a, eye)
 

@@ -1,0 +1,104 @@
+"""Batched ``[E, n, n]`` inverse through the hand-written Hopper kernel.
+
+``gj_inverse(a)`` computes what
+:func:`mfv2d_torch.ops.precision.gj_inverse_plain` computes (its plain
+PyTorch version, ``torch.linalg.inv``) in the dtype of ``a``, float32 or
+float64.
+
+- For tensors on the CPU it returns the plain version.
+- For CUDA tensors it launches ``csrc/gj_inverse.cu`` (built at first use,
+  see :mod:`mfv2d_torch.ops.kernels._build`) on the current stream, or
+  raises.  There is no fallback.
+- A zero or non-finite pivot raises ``torch.linalg.LinAlgError`` naming the
+  first element at fault, as ``torch.linalg.inv`` does for a singular input.
+
+The kernel replaces the Pallas TPU kernel ``gj_inverse_pallas``
+(mfv2d_tpu/ops/pallas_factor.py); the source note in the ``.cu`` file says
+what bounds it on the card.  ``launches`` counts the kernel launches made
+through this wrapper, so a run can show that its path used the kernel.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from mfv2d_torch.ops.kernels import _build
+from mfv2d_torch.ops.precision import gj_inverse_plain
+
+launches = 0
+
+_SUFFIX = {torch.float64: "f64", torch.float32: "f32"}
+
+
+@functools.cache
+def library() -> ctypes.CDLL:
+    """The built kernel library with its C entry points declared."""
+    lib = _build.load("gj_inverse")
+    for suffix in _SUFFIX.values():
+        fn = getattr(lib, f"mfv2d_gj_inverse_{suffix}")
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        route = getattr(lib, f"mfv2d_gj_inverse_shared_{suffix}")
+        route.argtypes = [ctypes.c_int]
+        route.restype = ctypes.c_int
+    return lib
+
+
+def uses_shared_memory(n: int, dtype: torch.dtype) -> bool:
+    """Whether an ``n x n`` inverse runs resident in shared memory on the
+    current CUDA device (else in place in global memory)."""
+    rc = getattr(library(), f"mfv2d_gj_inverse_shared_{_SUFFIX[dtype]}")(n)
+    if rc < 0:
+        raise RuntimeError(f"gj_inverse route query failed with CUDA error {-rc}.")
+    return rc == 1
+
+
+def _check(a: torch.Tensor) -> None:
+    if not isinstance(a, torch.Tensor):
+        raise TypeError(f"gj_inverse takes a tensor, got {type(a).__name__}.")
+    if a.dtype not in _SUFFIX:
+        raise TypeError(f"gj_inverse takes float32 or float64, got {a.dtype}.")
+    if a.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"gj_inverse runs on CPU or CUDA tensors, not {a.device}.")
+    if a.ndim != 3 or a.shape[1] != a.shape[2]:
+        raise ValueError(f"gj_inverse takes [E, n, n] matrices, got {tuple(a.shape)}.")
+    if not a.is_contiguous():
+        raise ValueError("gj_inverse takes a contiguous tensor.")
+
+
+def gj_inverse(a: torch.Tensor) -> torch.Tensor:
+    """The inverses of the ``[E, n, n]`` matrices ``a``."""
+    global launches
+    _check(a)
+    if a.device.type == "cpu":
+        return gj_inverse_plain(a)
+    n_elem, n = a.shape[0], a.shape[1]
+    out = torch.empty_like(a)
+    if n_elem == 0 or n == 0:
+        return out
+    info = torch.empty(n_elem, dtype=torch.int32, device=a.device)
+    fn = getattr(library(), f"mfv2d_gj_inverse_{_SUFFIX[a.dtype]}")
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        rc = fn(
+            ctypes.c_void_p(a.data_ptr()),
+            ctypes.c_void_p(out.data_ptr()),
+            ctypes.c_void_p(info.data_ptr()),
+            n_elem,
+            n,
+            ctypes.c_void_p(stream),
+        )
+    if rc != 0:
+        raise RuntimeError(f"gj_inverse kernel launch failed with CUDA error {rc}.")
+    launches += 1
+    bad = torch.nonzero(info).flatten()
+    if bad.numel():
+        e = int(bad[0])
+        raise torch.linalg.LinAlgError(
+            f"gj_inverse: matrix {e} of the batch is singular: pivot"
+            f" {int(info[e])} is zero or not finite."
+        )
+    return out

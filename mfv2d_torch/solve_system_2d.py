@@ -6,13 +6,16 @@ Orchestrates the pipeline (reference: python/mfv2d/solve_system_2d.py):
 2. bucket the mesh leaves by order and build batched element spaces on the
    requested device,
 3. assemble batched element matrices + forcing + Lagrange constraints,
-4. factorize the frozen saddle system once (host SuperLU),
+4. set up the linear solver once: host SuperLU of the frozen saddle system
+   (``linear_solver="direct"``), a dense device LU (``"dense"``), or the
+   element-local trace solvers (``"schur"``, ``"schur_direct"``, ``"pcg"``,
+   ``"gmres"``),
 5. run the Picard loop,
 6. reconstruct the output grids.
 
-Only the steady branch with ``linear_solver="direct"`` and
-``method="picard"`` is ported so far; every other input raises
-``NotImplementedError`` naming the ROADMAP item that will port it.
+Only the steady branch with ``method="picard"`` is ported so far; every
+other input raises ``NotImplementedError`` naming the ROADMAP item that
+will port it.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ from mfv2d_torch.mesh.quadtree import Mesh
 from mfv2d_torch.ops.basis import FemCache
 from mfv2d_torch.solver.discretization import discretize_mesh
 from mfv2d_torch.solver.solve import (
+    ConvergenceSettings,
     FrozenSaddleSolver,
     SolutionStatistics,
     SolverSettings,
@@ -66,12 +70,6 @@ def _check_ported(
         raise _not_ported("SolverSettings.device_mesh (multi-device)", "10")
     if checkpoint_settings is not None:
         raise _not_ported("checkpoint_settings (checkpoints)", "11")
-    if solver_settings.linear_solver != "direct":
-        raise _not_ported(
-            f"linear_solver={solver_settings.linear_solver!r} (iterative and"
-            " dense trace solvers)",
-            "8",
-        )
     if solver_settings.method != "picard":
         raise _not_ported(f"method={solver_settings.method!r} (Newton)", "4")
 
@@ -174,7 +172,31 @@ def solve_system_2d(
         explicit_vec = np.concatenate((forcing, lagrange_vec))
 
     t_factor = time.perf_counter()
-    solver = FrozenSaddleSolver(evaluator.matrices_per_leaf(matrices), lagrange_mat)
+    if solver_settings.linear_solver == "direct":
+        solver = FrozenSaddleSolver(
+            evaluator.matrices_per_leaf(matrices), lagrange_mat
+        )
+    elif solver_settings.linear_solver == "dense":
+        from mfv2d_torch.solver.iterative import DenseSaddleSolver
+
+        solver = DenseSaddleSolver(disc, matrices, lagrange_mat)
+    else:
+        from mfv2d_torch.solver.iterative import IterativeSaddleSolver
+
+        solver = IterativeSaddleSolver(
+            disc,
+            matrices,
+            lagrange_mat,
+            ConvergenceSettings(
+                maximum_iterations=max(
+                    200, 4 * (disc.n_dofs + int(lagrange_vec.size))
+                ),
+                absolute_tolerance=solver_settings.convergence.absolute_tolerance
+                * 1e-3,
+                relative_tolerance=1e-12,
+            ),
+            method=solver_settings.linear_solver,
+        )
     tracer.add("factorize", time.perf_counter() - t_factor)
 
     t_solve = time.perf_counter()

@@ -59,9 +59,13 @@ class ConvergenceSettings:
 class SolverSettings:
     """Nonlinear solver settings (reference solve_system.py:554-601).
 
-    The port runs ``linear_solver="direct"`` (host sparse LU of the frozen
-    saddle matrix, the reference behavior) with ``method="picard"``; the
-    other values of the JAX package are not ported yet and raise.
+    ``linear_solver`` selects the inner linear solve: "direct" (host sparse
+    LU of the frozen saddle matrix, the reference behavior), "dense" (dense
+    LU of the whole saddle matrix on the device), "schur_direct" (static
+    condensation: assembled trace Schur complement, sparse-factored once),
+    or the matrix-free paths "schur", "pcg", "gmres" on the device (see
+    mfv2d_torch.solver.iterative).  ``method`` is "picard"; Newton is not
+    ported yet and raises.
     """
 
     convergence: ConvergenceSettings = ConvergenceSettings()

@@ -185,13 +185,15 @@ def test_unported_options_raise():
         dict(vms_settings=vms),
         dict(checkpoint_settings=object()),
         dict(solver_settings=tf.SolverSettings(device_mesh=object())),
-        dict(solver_settings=tf.SolverSettings(linear_solver="dense")),
-        dict(solver_settings=tf.SolverSettings(linear_solver="gmres")),
         dict(solver_settings=tf.SolverSettings(method="newton")),
     ]
     for kw in bad_calls:
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tf.solve_system_2d(mesh, settings, **kw)
+    with pytest.raises(ValueError, match="Unknown iterative method"):
+        tf.solve_system_2d(
+            mesh, settings, tf.SolverSettings(linear_solver="no-such-solver")
+        )
 
     from mfv2d_torch.compiler import CompiledSystem
     from mfv2d_torch.ops.basis import FemCache
