@@ -1,7 +1,10 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (mfv2d_torch) on one CUDA GPU.
 
-Run from the repository root:  python3 chip_smoke.py
+Run from the repository root:  python3 chip_smoke.py [--probe]
+
+  --probe    phases 0, 1 and 6 only: build the kernels and hold the batched
+             inverse's routes against torch.linalg.inv, with their times
 
 Phases (each ends in torch.cuda.synchronize(); any failure exits non-zero):
 
@@ -15,11 +18,14 @@ Phases (each ends in torch.cuda.synchronize(); any failure exits non-zero):
 4. the main path at size: steady mixed Poisson, 64x64 mesh, p=4
 5. nonlinear Picard: steady Navier-Stokes Re=10, 16x16 mesh, p=5
 6. batched-inverse kernel vs its plain version on the card: saddle
-   matrices and real element blocks, f64 and f32, both kernel routes, a
-   singular batch, and median times at n=56 and n=208, E=4096
+   matrices and real element blocks, f64 and f32, all three kernel routes
+   (shared, blocked, global), a singular batch on the shared and blocked
+   routes, and median times beside torch.linalg.inv and the bound at n=56
+   and n=208 (E=4096) and n=289 (E=1000)
 7. Schur CG at size: mixed Poisson 64x64 p=4, linear_solver="schur"
 8. static condensation at size: mixed Poisson 64x64 p=8,
-   linear_solver="schur_direct"
+   linear_solver="schur_direct", then the same solve again, warm, under
+   torch.profiler: the device busy time and the device time by name
 9. nonlinear Picard through static condensation: phase 5's setup with
    linear_solver="schur_direct"
 
@@ -29,6 +35,7 @@ device summary (JSON).
 
 from __future__ import annotations
 
+import argparse
 import json
 import shutil
 import subprocess
@@ -45,9 +52,16 @@ BASE = np.array([(-1.0, -1.0), (1.0, -1.0), (1.0, 1.0), (-1.0, 1.0)])
 KERNEL_ORDERS = [(2, 2), (4, 4), (3, 5), (8, 8)]
 KERNEL_SIZES = [1, 1000, 4096]
 KERNEL_TOL = {torch.float64: 1e-12, torch.float32: 1e-5}
-INVERSE_SIZES = [1, 56, 121, 168, 208, 289]
+INVERSE_SIZES = [1, 56, 121, 168, 170, 208, 289, 460]
 INVERSE_BATCHES = [1, 1000, 4096]
+INVERSE_MAX_BATCH = {289: 1000, 460: 1000}
+INVERSE_TIMED = [(56, 4096), (208, 4096), (289, 1000)]
 INVERSE_TOL = {torch.float64: 1e-10, torch.float32: 1e-3}
+# The H100 SXM's HBM rate and FP64 peak (tensor cores; NVIDIA data sheet):
+# the bound of a kernel is the larger of its compulsory bytes and its
+# operations over these.
+HBM_BYTES_PER_S = 3.35e12
+FP64_FLOP_PER_S = 67e12
 
 
 def rel_err(mine, ref) -> float:
@@ -96,6 +110,13 @@ def phase1_build() -> None:
         for line in _build.build_logs.get(name, "").splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print(f"  ptxas {name}:", line.strip())
+
+
+def _bound(n_bytes: float, n_flops: float) -> tuple[float, str]:
+    """The least time (ms) the card could take, and what bounds it."""
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    flops_ms = n_flops / FP64_FLOP_PER_S * 1e3
+    return (bytes_ms, "bytes") if bytes_ms >= flops_ms else (flops_ms, "operations")
 
 
 def _kernel_inputs(orders, e, dtype, seed):
@@ -147,12 +168,24 @@ def phase2_kernel_vs_plain() -> dict:
     tb, jac = _kernel_inputs((4, 4), 4096, torch.float64, seed=1)
     ms = _median_ms(lambda: mass_edge.mass_edge(tb, jac))
     plain_ms = _median_ms(lambda: plain.mass_edge(tb, jac))
+    out = mass_edge.mass_edge(tb, jac)
     torch.cuda.synchronize()
+    e, n1, nq = out.shape[0], out.shape[1], jac.det.shape[1]
+    bound_ms, bound_by = _bound(
+        (out.numel() + sum(t.numel() for t in jac)) * out.element_size(), 2 * e * n1 * n1 * nq
+    )
     print(
         f"phase 2: kernel agrees; p=(4, 4) E=4096 f64 median: kernel {ms:.4f} ms,"
-        f" plain {plain_ms:.4f} ms"
+        f" plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})"
     )
-    return {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms}
+    return {
+        "max_abs_err": max_abs,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": None,
+    }
 
 
 def phase3_golden() -> None:
@@ -362,15 +395,14 @@ def phase6_inverse_vs_plain() -> dict:
     for n in INVERSE_SIZES:
         pool = _saddle_pool(n, 16, seed=n)
         cond = max(np.linalg.cond(k) for k in pool)
-        route = "shared" if gj_inverse.uses_shared_memory(n, torch.float64) else "global"
-        route32 = "shared" if gj_inverse.uses_shared_memory(n, torch.float32) else "global"
+        route = gj_inverse.route(n, torch.float64)
+        route32 = gj_inverse.route(n, torch.float32)
         print(f"  saddle n={n:3d}: max cond {cond:.3e}, route f64 {route}, f32 {route32}")
         if not cond <= 1e4:
             raise RuntimeError(f"saddle inputs too ill-conditioned: {cond:.3e}")
         pool = torch.tensor(pool, device="cuda")
         for e in INVERSE_BATCHES:
-            if n == 289 and e > 1000:
-                e = 1000
+            e = min(e, INVERSE_MAX_BATCH.get(n, e))
             reps = -(-e // pool.shape[0])
             cases[f"saddle n={n} E={e}"] = pool.repeat(reps, 1, 1)[:e].contiguous()
     poisson_blocks = _element_blocks(
@@ -401,31 +433,51 @@ def phase6_inverse_vs_plain() -> dict:
             if not err <= tol:
                 raise RuntimeError(f"inverse kernel disagrees: {err:.3e} > {tol:.0e}")
 
-    for dtype in INVERSE_TOL:
-        singular = cases["saddle n=56 E=1000"][:8].to(dtype).clone()
-        singular[5, :, 17] = 0.0
-        try:
-            gj_inverse.gj_inverse(singular)
-        except torch.linalg.LinAlgError as exc:
-            print(f"  singular batch ({dtype}) raised: {exc}")
-            if "matrix 5 " not in str(exc):
-                raise RuntimeError("the singular batch named the wrong matrix") from exc
-        else:
-            raise RuntimeError("a singular batch did not raise")
-
-    timing = {}
     for n in (56, 208):
-        a = cases[f"saddle n={n} E=4096"]
+        for dtype in INVERSE_TOL:
+            singular = cases[f"saddle n={n} E=1000"][:8].to(dtype).clone()
+            singular[5, :, 17] = 0.0
+            try:
+                gj_inverse.gj_inverse(singular)
+            except torch.linalg.LinAlgError as exc:
+                print(f"  singular batch n={n} {gj_inverse.route(n, dtype)} ({dtype}) raised: {exc}")
+                if "matrix 5 " not in str(exc):
+                    raise RuntimeError("the singular batch named the wrong matrix") from exc
+            else:
+                raise RuntimeError("a singular batch did not raise")
+
+    # The plain version is torch.linalg.inv, the one library call that
+    # computes the same function: its time is both plain_ms and library_ms.
+    routes = []
+    for n, e in INVERSE_TIMED:
+        a = cases[f"saddle n={n} E={e}"]
         ms = _median_ms(lambda: gj_inverse.gj_inverse(a))
-        plain_ms = _median_ms(lambda: gj_inverse_plain(a))
+        library_ms = _median_ms(lambda: gj_inverse_plain(a))
         torch.cuda.synchronize()
+        bound_ms, bound_by = _bound(2 * a.numel() * a.element_size(), 2 * n**3 * e)
+        route = gj_inverse.route(n, torch.float64)
         print(
-            f"phase 6: inverse kernel agrees; n={n} E=4096 f64 median: kernel"
-            f" {ms:.4f} ms, plain {plain_ms:.4f} ms"
+            f"phase 6: inverse kernel agrees; n={n} E={e} f64 {route} route median:"
+            f" kernel {ms:.4f} ms, torch.linalg.inv {library_ms:.4f} ms,"
+            f" bound {bound_ms:.4f} ms ({bound_by})"
         )
-        timing[n] = (ms, plain_ms)
-    ms, plain_ms = timing[56]
-    return {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms}
+        routes.append(
+            {"n": n, "E": e, "route": route, "ms": ms, "library_ms": library_ms,
+             "bound_ms": bound_ms, "bound_by": bound_by}
+        )
+    blocked = routes[1]
+    if blocked["route"] != "blocked" or not blocked["ms"] < blocked["library_ms"]:
+        raise RuntimeError(f"the blocked route at n=208 does not beat torch.linalg.inv: {blocked}")
+    first = routes[0]
+    return {
+        "max_abs_err": max_abs,
+        "ms": first["ms"],
+        "plain_ms": first["library_ms"],
+        "bound_ms": first["bound_ms"],
+        "bound_by": first["bound_by"],
+        "library_ms": first["library_ms"],
+        "routes": routes,
+    }
 
 
 def _mixed_poisson_at_size(n: int, p: int, linear_solver: str, phase: int) -> None:
@@ -494,12 +546,46 @@ def phase7_schur_cg() -> int:
     return gj_inverse.launches
 
 
+def _device_profile(label: str, fn) -> None:
+    """Run ``fn`` under torch.profiler; print the device busy time and the
+    device time by name (kernels and copies)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = []
+    for ev in prof.key_averages():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = ev.self_cuda_time_total
+        rows.append((us, ev.count, ev.key))
+    busy = sum(us for us, _, _ in rows) / 1e6
+    print(
+        f"  profile {label}: wall {wall:.3f} s, device busy {busy:.4f} s"
+        f" (idle {100 * (1 - busy / wall):.1f}%)"
+    )
+    for us, count, key in sorted(rows, reverse=True)[:8]:
+        print(f"    {us / 1e3:11.3f} ms {count:7d}  {key[:80]}")
+
+
 def phase8_static_condensation() -> None:
     from mfv2d_torch.ops.kernels import gj_inverse
 
+    route = gj_inverse.route(208, torch.float64)
+    print(f"  n=208 f64 blocks take the {route} route")
+    if route != "blocked":
+        raise RuntimeError(f"the p=8 blocks take the {route} route, not the blocked one")
     gj_inverse.launches = 0
     _mixed_poisson_at_size(64, 8, "schur_direct", phase=8)
     _require_launches(8, gj_inverse=gj_inverse.launches)
+    _device_profile(
+        "phase 8, warm", lambda: _mixed_poisson_at_size(64, 8, "schur_direct", phase=8)
+    )
 
 
 def phase9_picard_condensed(direct_iterations: int) -> None:
@@ -520,8 +606,15 @@ def phase9_picard_condensed(direct_iterations: int) -> None:
 def main() -> int:
     import mfv2d_torch  # noqa: F401  (fails outside a checkout of the repo)
 
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--probe", action="store_true", help="phases 0, 1 and 6 only")
+    args = parser.parse_args()
+
     phase0_device()
     phase1_build()
+    if args.probe:
+        print(json.dumps(phase6_inverse_vs_plain()))
+        return 0
     mass_timing = phase2_kernel_vs_plain()
     phase3_golden()
     mass_launches = phase4_main_path()

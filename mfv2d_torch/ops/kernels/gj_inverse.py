@@ -13,8 +13,8 @@ float64.
   first element at fault, as ``torch.linalg.inv`` does for a singular input.
 
 The kernel replaces the Pallas TPU kernel ``gj_inverse_pallas``
-(mfv2d_tpu/ops/pallas_factor.py); the source note in the ``.cu`` file says
-what bounds it on the card.  ``launches`` counts the kernel launches made
+(mfv2d_tpu/ops/pallas_factor.py).  It has three routes by n (:func:`route`);
+the source note in the ``.cu`` file says what bounds each on the card.  ``launches`` counts the kernel launches made
 through this wrapper, so a run can show that its path used the kernel.
 """
 
@@ -31,6 +31,7 @@ from mfv2d_torch.ops.precision import gj_inverse_plain
 launches = 0
 
 _SUFFIX = {torch.float64: "f64", torch.float32: "f32"}
+_ROUTES = ("shared", "blocked", "global")
 
 
 @functools.cache
@@ -41,19 +42,21 @@ def library() -> ctypes.CDLL:
         fn = getattr(lib, f"mfv2d_gj_inverse_{suffix}")
         fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        route = getattr(lib, f"mfv2d_gj_inverse_shared_{suffix}")
-        route.argtypes = [ctypes.c_int]
-        route.restype = ctypes.c_int
+        query = getattr(lib, f"mfv2d_gj_inverse_route_{suffix}")
+        query.argtypes = [ctypes.c_int]
+        query.restype = ctypes.c_int
     return lib
 
 
-def uses_shared_memory(n: int, dtype: torch.dtype) -> bool:
-    """Whether an ``n x n`` inverse runs resident in shared memory on the
-    current CUDA device (else in place in global memory)."""
-    rc = getattr(library(), f"mfv2d_gj_inverse_shared_{_SUFFIX[dtype]}")(n)
+def route(n: int, dtype: torch.dtype) -> str:
+    """The kernel route an ``n x n`` inverse takes on the current CUDA device:
+    ``"shared"`` (the matrix resident in shared memory), ``"blocked"``
+    (panels of 32 columns and rank-32 tile updates) or ``"global"`` (in
+    place in global memory)."""
+    rc = getattr(library(), f"mfv2d_gj_inverse_route_{_SUFFIX[dtype]}")(n)
     if rc < 0:
         raise RuntimeError(f"gj_inverse route query failed with CUDA error {-rc}.")
-    return rc == 1
+    return _ROUTES[rc]
 
 
 def _check(a: torch.Tensor) -> None:

@@ -85,14 +85,15 @@ def solve_system_2d(
     recon_order: int | None = None,
     print_residual: bool = False,
     checkpoint_settings=None,
-    device="cpu",
+    device="cuda",
 ) -> tuple[Sequence[ReconstructedGrid], SolutionStatistics, Mesh]:
     """Solve the steady k-form system on the mesh.
 
-    The element work runs on ``device`` (``"cpu"`` or ``"cuda"``; never
-    picked automatically), in float64.  Returns the reconstructed solution
-    grids (the initial iterate and the converged one), statistics, and the
-    mesh.
+    The element work runs on ``device`` in float64: the CUDA device by
+    default, the CPU only where the caller passes ``device="cpu"``.  Without
+    a CUDA device the default raises; it never falls back to the CPU.
+    Returns the reconstructed solution grids (the initial iterate and the
+    converged one), statistics, and the mesh.
     """
     _check_ported(
         solver_settings,

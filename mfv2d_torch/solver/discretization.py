@@ -14,6 +14,7 @@ from dataclasses import dataclass, field
 
 import numpy as np
 import numpy.typing as npt
+import torch
 
 from mfv2d_torch.evaluation import ElementBatch
 from mfv2d_torch.mesh.quadtree import Mesh
@@ -53,17 +54,30 @@ class Discretization:
         return int(self.element_offsets[-1])
 
 
+def check_device(device) -> torch.device:
+    """``device`` as a ``torch.device``.  A CUDA device must be present: the
+    port never falls back to the CPU unless the caller asks for it."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "mfv2d_torch runs on the CUDA device by default and none is"
+            ' available; pass device="cpu" to run on the CPU.'
+        )
+    return device
+
+
 def discretize_mesh(
     mesh: Mesh,
     form_spec: ElementFormSpecification,
     basis_cache: FemCache,
-    device="cpu",
+    device="cuda",
 ) -> Discretization:
     """Build the bucketed discretization from a mesh.
 
-    Each bucket's geometry lives on ``device``; the DoF bookkeeping stays on
-    the host.
+    Each bucket's geometry lives on ``device`` (the CUDA device unless the
+    caller asks for ``"cpu"``); the DoF bookkeeping stays on the host.
     """
+    device = check_device(device)
     leaf_indices = tuple(int(v) for v in mesh.get_leaf_indices())
     n_leaves = len(leaf_indices)
     element_orders = np.array(

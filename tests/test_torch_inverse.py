@@ -5,8 +5,12 @@
 plain version on the card (``cuda``-marked test, and chip_smoke.py).  Here
 the plain version is held against ``gj_inverse_pallas`` in interpret mode,
 the refinement probe against the JAX one, and the mass inverses of the
-element batches against the JAX package's.
+element batches against the JAX package's.  A step-by-step mirror of the
+kernel's blocked route (:func:`blocked_gj_mirror`) holds its algebra
+against the plain version and the Pallas kernel.
 """
+
+import math
 
 import jax
 import jax.numpy as jnp
@@ -46,6 +50,103 @@ def saddle_blocks(e, n_m, n_b, seed, zero_block_first=False):
     if zero_block_first:
         return np.block([[z, b], [b.transpose(0, 2, 1), m]])
     return np.block([[m, b.transpose(0, 2, 1)], [b, z]])
+
+
+def saddle_mix(n, seed):
+    """Two n x n saddle blocks in each ordering; n // 3 multiplier rows."""
+    n_b = n // 3
+    return np.concatenate(
+        [saddle_blocks(2, n - n_b, n_b, seed, zero_block_first=z) for z in (True, False)]
+    )
+
+
+def blocked_gj_mirror(a: torch.Tensor, b: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The blocked route of ``csrc/gj_inverse.cu``, step by step, batched.
+
+    Panels of ``b`` columns are swept with partial pivoting (the largest
+    |W[i,k]| over rows i >= k, ties to the smaller row, NaN as +inf); every
+    other column tile of width ``b`` is gathered through the panel's row
+    swaps and updated by the rank-b product with the panel; the row swaps
+    are undone as column swaps at the end.  With ``b >= n`` there are no
+    tiles and this is the unblocked sweep of the other two routes.  Returns
+    the inverses and ``info``: 0, or each matrix's first failing pivot k+1.
+    """
+    e, n, _ = a.shape
+    batch = torch.arange(e)[:, None]
+    w = a.clone()
+    perm = torch.zeros((e, n), dtype=torch.long)
+    info = torch.zeros(e, dtype=torch.long)
+    for k0 in range(0, n, b):
+        k1 = min(k0 + b, n)
+        m = w[:, :, k0:k1].clone()  # the panel
+        src = torch.arange(n).repeat(e, 1)  # the row of w that lands in each row
+        for k in range(k0, k1):
+            t = k - k0
+            key = m[:, k:, t].abs().nan_to_num(nan=math.inf, posinf=math.inf)
+            first = key.argmax(dim=1)  # the first of equal keys
+            best = key.gather(1, first[:, None])[:, 0]
+            info = torch.where((info == 0) & ~((best > 0) & (best < math.inf)), k + 1, info)
+            p = k + first
+            perm[:, k] = p
+            swap = torch.arange(n).repeat(e, 1)
+            swap[:, k] = p
+            swap[batch[:, 0], p] = k
+            m = m[batch, swap]
+            src = src.gather(1, swap)
+            inv_pivot = 1.0 / m[:, k, t]
+            row = m[:, k, :] * inv_pivot[:, None]
+            row[:, t] = inv_pivot
+            col = m[:, :, t].clone()
+            m[:, :, t] = 0.0
+            m = m - col[:, :, None] * row[:, None, :]
+            m[:, k, :] = row
+        w[:, :, k0:k1] = m
+        for j0 in range(0, n, b):
+            if j0 != k0:
+                tile = w[:, :, j0 : j0 + b][batch, src]
+                pivot_rows = tile[:, k0:k1].clone()
+                tile[:, k0:k1] = 0.0
+                w[:, :, j0 : j0 + b] = tile + m @ pivot_rows
+    cols = torch.arange(n).repeat(e, 1)  # the column of w that lands in each column
+    for k in reversed(range(n)):
+        pk = perm[:, k]
+        c_k = cols[:, k].clone()
+        cols[:, k] = cols[batch[:, 0], pk]
+        cols[batch[:, 0], pk] = c_k
+    return w.gather(2, cols[:, None, :].expand(e, n, n)), info
+
+
+@pytest.mark.parametrize("b", [1, 8, 32])
+@pytest.mark.parametrize("n", [1, 5, 33, 64, 97, 170])
+def test_blocked_mirror_matches_plain(n, b):
+    """Ragged last panels, and saddle blocks whose zero block comes first."""
+    a = torch.tensor(saddle_mix(n, seed=n))
+    if n > 1:
+        assert torch.all(a[:2, : n // 3, : n // 3] == 0.0)
+    inv, info = blocked_gj_mirror(a, b)
+    assert torch.all(info == 0)
+    assert rel(inv, tprec.gj_inverse_plain(a).numpy()) <= 1e-12
+
+
+@pytest.mark.parametrize("b", [8, 32])
+def test_blocked_mirror_reports_the_unblocked_failing_pivot(b):
+    a = torch.tensor(np.concatenate([saddle_mix(97, seed=8)] * 2))
+    a[5, :, 17] = 0.0
+    _, info = blocked_gj_mirror(a, b)
+    _, unblocked_info = blocked_gj_mirror(a, a.shape[1])
+    assert torch.equal(info, unblocked_info)
+    assert info.tolist() == [0] * 5 + [18] + [0] * 2
+
+
+def test_blocked_mirror_matches_gj_inverse_pallas():
+    """The single-level case of test_plain_matches_gj_inverse_pallas, f32."""
+    rng = np.random.default_rng(3)
+    a = (rng.normal(size=(8, 64, 64)) + 64 * np.eye(64)).astype(np.float32)
+    with jax.enable_x64(False):
+        ref = np.asarray(gj_inverse_pallas(jnp.asarray(a), tile=4))
+    mine, info = blocked_gj_mirror(torch.tensor(a), 32)
+    assert mine.dtype == torch.float32 and torch.all(info == 0)
+    assert rel(mine, ref) <= 5e-5
 
 
 @pytest.mark.parametrize(
@@ -136,14 +237,30 @@ def test_kernel_matches_plain_on_card(dtype):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
     tol = 1e-10 if dtype == torch.float64 else 1e-3
-    for n_m, n_b in [(1, 0), (40, 16), (90, 31), (150, 58)]:
-        a = torch.tensor(saddle_blocks(37, n_m, n_b, seed=n_m), device="cuda")
+    f64 = dtype == torch.float64
+    routes = {
+        1: "shared",
+        56: "shared",
+        121: "shared",
+        170: "blocked" if f64 else "shared",
+        208: "blocked" if f64 else "shared",
+        289: "blocked",
+        460: "global" if f64 else "blocked",
+    }
+    for n, route in routes.items():
+        n_b = n // 3
+        a = torch.tensor(saddle_blocks(37, n - n_b, n_b, seed=n), device="cuda")
         a = a.to(dtype)
+        assert kernel.route(n, dtype) == route
         before = kernel.launches
         out = kernel.gj_inverse(a)
         torch.cuda.synchronize()
         assert kernel.launches == before + 1
-        assert rel(out.cpu(), tprec.gj_inverse_plain(a).cpu().numpy()) <= tol
+        assert rel(out.cpu(), tprec.gj_inverse_plain(a).cpu().numpy()) <= tol, n
     singular = torch.zeros((2, 5, 5), dtype=dtype, device="cuda")
     with pytest.raises(torch.linalg.LinAlgError, match="matrix 0"):
+        kernel.gj_inverse(singular)
+    singular = torch.tensor(saddle_blocks(8, 139, 69, seed=9), device="cuda").to(dtype)
+    singular[5, :, 17] = 0.0
+    with pytest.raises(torch.linalg.LinAlgError, match="matrix 5 .* pivot 18 "):
         kernel.gj_inverse(singular)

@@ -56,7 +56,7 @@ def _setup(n=3, p=3):
     matrices = [np.array(m) for m in matrices]
     tsystem = tpoisson.mixed_poisson().system
     tdisc = t_discretize(
-        tf.examples.unit_square_mesh(n, n, p), tsystem.unknown_forms, TFemCache(3)
+        tf.examples.unit_square_mesh(n, n, p), tsystem.unknown_forms, TFemCache(3), device="cpu"
     )
     return disc, tdisc, forcing, matrices, lagrange_mat, lagrange_vec
 
@@ -256,7 +256,8 @@ def _solve_capturing(mf, module, monkeypatch, mesh, settings, solver):
         return original(disc, recon_order, solution, *args)
 
     monkeypatch.setattr(module, "reconstruct_mesh_from_solution", capture)
-    _, stats, _ = mf.solve_system_2d(mesh, settings, solver, recon_order=4)
+    on_cpu = {"device": "cpu"} if mf is tf else {}
+    _, stats, _ = mf.solve_system_2d(mesh, settings, solver, recon_order=4, **on_cpu)
     monkeypatch.undo()
     return captured[-1], stats
 
@@ -341,7 +342,7 @@ def test_golden_fixture_through_schur_direct():
         u.weight @ q.derivative == -(u.weight @ source_exact),
     )
     disc = t_discretize(
-        tf.examples.unit_square_mesh(4, 4, 3), system.unknown_forms, TFemCache(2)
+        tf.examples.unit_square_mesh(4, 4, 3), system.unknown_forms, TFemCache(2), device="cpu"
     )
     evaluator = TEvaluator(disc.form_spec, TCompiled(system), disc)
     forcing, matrices, g, lagrange_vec = t_linear_system(

@@ -6,6 +6,7 @@ the final DoF vector each one reconstructs is captured and must agree to
 """
 
 import importlib
+import inspect
 from pathlib import Path
 
 import numpy as np
@@ -65,7 +66,7 @@ def test_full_solution_matches_golden_fixture():
 
     system = _golden_system(tf)
     mesh = tf.examples.unit_square_mesh(4, 4, 3)
-    disc = discretize_mesh(mesh, system.unknown_forms, FemCache(2))
+    disc = discretize_mesh(mesh, system.unknown_forms, FemCache(2), device="cpu")
     evaluator = SystemEvaluator(disc.form_spec, CompiledSystem(system), disc)
     forcing, matrices, lagrange_mat, lagrange_vec = compute_linear_system(
         disc, system, evaluator, [], [], None
@@ -146,7 +147,8 @@ def _solve_capturing(mf, module, monkeypatch, make, model_mod):
 
     monkeypatch.setattr(module, "reconstruct_mesh_from_solution", capture)
     mesh, settings, solver = make(mf, model_mod)
-    grids, stats, _ = mf.solve_system_2d(mesh, settings, solver, recon_order=6)
+    on_cpu = {"device": "cpu"} if mf is tf else {}
+    grids, stats, _ = mf.solve_system_2d(mesh, settings, solver, recon_order=6, **on_cpu)
     return captured[-1], grids, stats
 
 
@@ -189,10 +191,10 @@ def test_unported_options_raise():
     ]
     for kw in bad_calls:
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tf.solve_system_2d(mesh, settings, **kw)
+            tf.solve_system_2d(mesh, settings, device="cpu", **kw)
     with pytest.raises(ValueError, match="Unknown iterative method"):
         tf.solve_system_2d(
-            mesh, settings, tf.SolverSettings(linear_solver="no-such-solver")
+            mesh, settings, tf.SolverSettings(linear_solver="no-such-solver"), device="cpu"
         )
 
     from mfv2d_torch.compiler import CompiledSystem
@@ -200,7 +202,23 @@ def test_unported_options_raise():
     from mfv2d_torch.solver.discretization import discretize_mesh
     from mfv2d_torch.solver.solve import SystemEvaluator
 
-    disc = discretize_mesh(mesh, settings.system.unknown_forms, FemCache(3))
+    disc = discretize_mesh(mesh, settings.system.unknown_forms, FemCache(3), device="cpu")
     evaluator = SystemEvaluator(disc.form_spec, CompiledSystem(settings.system), disc)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         evaluator.element_jacobians(np.zeros(disc.n_dofs))
+
+
+def test_entry_points_default_to_the_card(monkeypatch):
+    """Both entry points take the CUDA device unless the caller asks for the
+    CPU, and without a CUDA device they raise instead of falling back."""
+    from mfv2d_torch.ops.basis import FemCache
+    from mfv2d_torch.solver.discretization import discretize_mesh
+
+    for fn in (tf.solve_system_2d, discretize_mesh):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    mesh, settings, _ = _mixed_poisson(tf, tpoisson)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        tf.solve_system_2d(mesh, settings)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        discretize_mesh(mesh, settings.system.unknown_forms, FemCache(3))
