@@ -10,7 +10,8 @@ Phases (each ends in torch.cuda.synchronize(); any failure exits non-zero):
 
 0. card, power limit, torch/CUDA/nvcc versions; exit 1 without a GPU
 1. build both kernels (csrc/mass_edge.cu, csrc/gj_inverse.cu) for sm_90a,
-   one nvcc each, started together
+   one nvcc each, started together; ptxas's registers and spills, and a
+   failure if the register route of gj_inverse spills
 2. M1 kernel vs its plain PyTorch version on the card, f64 and f32, and
    their median times at p=4, E=4096
 3. the golden 4x4 p=3 mixed-Poisson solution on the card, through the
@@ -18,10 +19,11 @@ Phases (each ends in torch.cuda.synchronize(); any failure exits non-zero):
 4. the main path at size: steady mixed Poisson, 64x64 mesh, p=4
 5. nonlinear Picard: steady Navier-Stokes Re=10, 16x16 mesh, p=5
 6. batched-inverse kernel vs its plain version on the card: saddle
-   matrices and real element blocks, f64 and f32, all three kernel routes
-   (shared, blocked, global), a singular batch on the shared and blocked
-   routes, and median times beside torch.linalg.inv and the bound at n=56
-   and n=208 (E=4096) and n=289 (E=1000)
+   matrices and real element blocks, f64 and f32, every route that n
+   chooses (register up to 64, blocked, global), a singular batch on the
+   register and blocked routes, and median times beside torch.linalg.inv
+   and the bound on every route: n=56 (E=4096), the phase-9 blocks (n=121,
+   E=256), n=208 (E=4096), n=289 and n=460 (E=1000)
 7. Schur CG at size: mixed Poisson 64x64 p=4, linear_solver="schur"
 8. static condensation at size: mixed Poisson 64x64 p=8,
    linear_solver="schur_direct", then the same solve again, warm, under
@@ -37,6 +39,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import shutil
 import subprocess
 import sys
@@ -52,10 +55,18 @@ BASE = np.array([(-1.0, -1.0), (1.0, -1.0), (1.0, 1.0), (-1.0, 1.0)])
 KERNEL_ORDERS = [(2, 2), (4, 4), (3, 5), (8, 8)]
 KERNEL_SIZES = [1, 1000, 4096]
 KERNEL_TOL = {torch.float64: 1e-12, torch.float32: 1e-5}
-INVERSE_SIZES = [1, 56, 121, 168, 170, 208, 289, 460]
+INVERSE_SIZES = [1, 16, 32, 33, 56, 64, 65, 121, 168, 170, 208, 289, 460]
 INVERSE_BATCHES = [1, 1000, 4096]
 INVERSE_MAX_BATCH = {289: 1000, 460: 1000}
-INVERSE_TIMED = [(56, 4096), (208, 4096), (289, 1000)]
+# Timed inverse cases, each on the route its n takes: the p=4 blocks'
+# size (phase 7), the real phase-9 batch, the p=8 blocks' sizes, and n=460.
+INVERSE_TIMED = [
+    "saddle n=56 E=4096",
+    "phase-9 blocks n=121 E=256",
+    "saddle n=208 E=4096",
+    "saddle n=289 E=1000",
+    "saddle n=460 E=1000",
+]
 INVERSE_TOL = {torch.float64: 1e-10, torch.float32: 1e-3}
 # The H100 SXM's HBM rate and FP64 peak (tensor cores; NVIDIA data sheet):
 # the bound of a kernel is the larger of its compulsory bytes and its
@@ -106,10 +117,23 @@ def phase1_build() -> None:
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     print(f"phase 1: built mass_edge.cu and gj_inverse.cu in {seconds:.2f} s")
+    register_entries = []
     for name in ("mass_edge", "gj_inverse"):
+        entry = ""
         for line in _build.build_logs.get(name, "").splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print(f"  ptxas {name}:", line.strip())
+            found = re.search(r"(?:Compiling entry function|Function properties for) '?(\w+)", line)
+            if found:
+                entry = found.group(1)
+            spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if spills and "gj_inverse_register_kernel" in entry:
+                register_entries.append(entry)
+                if spills.group(1) != "0" or spills.group(2) != "0":
+                    raise RuntimeError(f"the register route spills: {entry}: {line.strip()}")
+    if "gj_inverse" in _build.build_logs and not register_entries:
+        raise RuntimeError("ptxas reported no register-route kernel")
+    print(f"  register route: 0 spill bytes in {len(set(register_entries))} instantiations")
 
 
 def _bound(n_bytes: float, n_flops: float) -> tuple[float, str]:
@@ -433,7 +457,7 @@ def phase6_inverse_vs_plain() -> dict:
             if not err <= tol:
                 raise RuntimeError(f"inverse kernel disagrees: {err:.3e} > {tol:.0e}")
 
-    for n in (56, 208):
+    for n in (56, 121, 208):
         for dtype in INVERSE_TOL:
             singular = cases[f"saddle n={n} E=1000"][:8].to(dtype).clone()
             singular[5, :, 17] = 0.0
@@ -449,15 +473,17 @@ def phase6_inverse_vs_plain() -> dict:
     # The plain version is torch.linalg.inv, the one library call that
     # computes the same function: its time is both plain_ms and library_ms.
     routes = []
-    for n, e in INVERSE_TIMED:
-        a = cases[f"saddle n={n} E={e}"]
-        ms = _median_ms(lambda: gj_inverse.gj_inverse(a))
-        library_ms = _median_ms(lambda: gj_inverse_plain(a))
+    for name in INVERSE_TIMED:
+        a = cases[name]
+        e, n = a.shape[0], a.shape[1]
+        reps = 5 if n > 439 else 20  # the global route takes about a second a call
+        ms = _median_ms(lambda: gj_inverse.gj_inverse(a), reps=reps)
+        library_ms = _median_ms(lambda: gj_inverse_plain(a), reps=reps)
         torch.cuda.synchronize()
         bound_ms, bound_by = _bound(2 * a.numel() * a.element_size(), 2 * n**3 * e)
         route = gj_inverse.route(n, torch.float64)
         print(
-            f"phase 6: inverse kernel agrees; n={n} E={e} f64 {route} route median:"
+            f"phase 6: inverse kernel agrees; {name} f64 {route} route median:"
             f" kernel {ms:.4f} ms, torch.linalg.inv {library_ms:.4f} ms,"
             f" bound {bound_ms:.4f} ms ({bound_by})"
         )
@@ -465,9 +491,10 @@ def phase6_inverse_vs_plain() -> dict:
             {"n": n, "E": e, "route": route, "ms": ms, "library_ms": library_ms,
              "bound_ms": bound_ms, "bound_by": bound_by}
         )
-    blocked = routes[1]
-    if blocked["route"] != "blocked" or not blocked["ms"] < blocked["library_ms"]:
-        raise RuntimeError(f"the blocked route at n=208 does not beat torch.linalg.inv: {blocked}")
+    for n, want in ((56, "register"), (208, "blocked")):
+        timed = next(r for r in routes if r["n"] == n)
+        if timed["route"] != want or not timed["ms"] < timed["library_ms"]:
+            raise RuntimeError(f"the {want} route at n={n} does not beat torch.linalg.inv: {timed}")
     first = routes[0]
     return {
         "max_abs_err": max_abs,

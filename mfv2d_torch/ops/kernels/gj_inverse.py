@@ -13,9 +13,10 @@ float64.
   first element at fault, as ``torch.linalg.inv`` does for a singular input.
 
 The kernel replaces the Pallas TPU kernel ``gj_inverse_pallas``
-(mfv2d_tpu/ops/pallas_factor.py).  It has three routes by n (:func:`route`);
-the source note in the ``.cu`` file says what bounds each on the card.  ``launches`` counts the kernel launches made
-through this wrapper, so a run can show that its path used the kernel.
+(mfv2d_tpu/ops/pallas_factor.py).  Its route depends on n (:func:`route`);
+the source note in the ``.cu`` file says what bounds each on the card.
+``launches`` counts the kernel launches made through this wrapper, so a run
+can show that its path used the kernel.
 """
 
 from __future__ import annotations
@@ -31,7 +32,7 @@ from mfv2d_torch.ops.precision import gj_inverse_plain
 launches = 0
 
 _SUFFIX = {torch.float64: "f64", torch.float32: "f32"}
-_ROUTES = ("shared", "blocked", "global")
+_ROUTES = ("register", "blocked", "global")
 
 
 @functools.cache
@@ -50,9 +51,10 @@ def library() -> ctypes.CDLL:
 
 def route(n: int, dtype: torch.dtype) -> str:
     """The kernel route an ``n x n`` inverse takes on the current CUDA device:
-    ``"shared"`` (the matrix resident in shared memory), ``"blocked"``
-    (panels of 32 columns and rank-32 tile updates) or ``"global"`` (in
-    place in global memory)."""
+    ``"register"`` (n <= 64: one matrix row per thread in registers, a
+    group of 32 or 64 threads per matrix), ``"blocked"`` (panels of 32
+    columns and rank-32 tile updates) or ``"global"`` (in place in global
+    memory, above the blocked route's sizes)."""
     rc = getattr(library(), f"mfv2d_gj_inverse_route_{_SUFFIX[dtype]}")(n)
     if rc < 0:
         raise RuntimeError(f"gj_inverse route query failed with CUDA error {-rc}.")

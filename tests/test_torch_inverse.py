@@ -5,9 +5,10 @@
 plain version on the card (``cuda``-marked test, and chip_smoke.py).  Here
 the plain version is held against ``gj_inverse_pallas`` in interpret mode,
 the refinement probe against the JAX one, and the mass inverses of the
-element batches against the JAX package's.  A step-by-step mirror of the
-kernel's blocked route (:func:`blocked_gj_mirror`) holds its algebra
-against the plain version and the Pallas kernel.
+element batches against the JAX package's.  Step-by-step mirrors of the
+kernel's blocked route (:func:`blocked_gj_mirror`) and register route
+(:func:`implicit_gj_mirror`) hold their algebra against the plain version
+and the Pallas kernel.
 """
 
 import math
@@ -68,7 +69,7 @@ def blocked_gj_mirror(a: torch.Tensor, b: int) -> tuple[torch.Tensor, torch.Tens
     other column tile of width ``b`` is gathered through the panel's row
     swaps and updated by the rank-b product with the panel; the row swaps
     are undone as column swaps at the end.  With ``b >= n`` there are no
-    tiles and this is the unblocked sweep of the other two routes.  Returns
+    tiles and this is the unblocked sweep of the global route.  Returns
     the inverses and ``info``: 0, or each matrix's first failing pivot k+1.
     """
     e, n, _ = a.shape
@@ -114,6 +115,95 @@ def blocked_gj_mirror(a: torch.Tensor, b: int) -> tuple[torch.Tensor, torch.Tens
         cols[:, k] = cols[batch[:, 0], pk]
         cols[batch[:, 0], pk] = c_k
     return w.gather(2, cols[:, None, :].expand(e, n, n)), info
+
+
+def implicit_gj_mirror(a: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The register route of ``csrc/gj_inverse.cu``, step by step, batched.
+
+    Implicit pivoting: no row is ever swapped.  Step k picks the pivot p_k,
+    the largest |T[i,k]| over the rows not yet used (ties to the smaller
+    original row, NaN as +inf), and sweeps in place: the pivot row becomes
+    ``T[p,:] / piv`` with ``T[p,k] = 1 / piv``, every other row i becomes
+    ``T[i,:] - T[i,k] row`` with ``T[i,k]`` taken as 0.  At the end
+    ``inverse[k, p_j] = T[p_k, j]``.
+
+    As in the kernel, each row lives in a register array of n rounded up
+    to 8 entries, zero-padded past n, and is rotated
+    left one place per step so that column k always sits at index 0; the
+    new column-k value goes to the last index.  After n steps column j sits
+    at index ``length - n + j``.  The pivot row is scaled lazily: its
+    owner keeps its raw row (``T[p,:] = s_p u_p`` with ``s_p = 1 / piv``,
+    applied once at the end) and broadcasts it unscaled; every other row
+    takes ``f_i = u_i[0] / piv`` and subtracts ``f_i`` times it, with ``-f_i``
+    in the last place.  Returns the inverses and ``info``: 0, or each
+    matrix's first failing pivot k+1.
+    """
+    e, n, _ = a.shape
+    cap = -(-n // 8) * 8
+    batch = torch.arange(e)
+    u = torch.zeros((e, n, cap), dtype=a.dtype)
+    u[:, :, :n] = a
+    used = torch.zeros((e, n), dtype=torch.bool)
+    scale = torch.ones((e, n), dtype=a.dtype)
+    perm = torch.zeros((e, n), dtype=torch.long)
+    info = torch.zeros(e, dtype=torch.long)
+    for k in range(n):
+        key = u[:, :, 0].abs().nan_to_num(nan=math.inf, posinf=math.inf)
+        key = torch.where(used, -1.0, key)
+        p = key.argmax(dim=1)  # the first of equal keys: the smaller row
+        best = key[batch, p]
+        info = torch.where((info == 0) & ~((best > 0) & (best < math.inf)), k + 1, info)
+        perm[:, k] = p
+        raw = u[batch, p]
+        inv_pivot = 1.0 / raw[:, 0]
+        f = u[:, :, 0] * inv_pivot[:, None]
+        f[batch, p] = 0.0
+        b = torch.cat([raw[:, 1:], torch.ones_like(raw[:, :1])], dim=1)
+        shifted = torch.cat([u[:, :, 1:], torch.zeros_like(u[:, :, :1])], dim=2)
+        u = shifted - f[:, :, None] * b[:, None, :]
+        u[batch, p, -1] = 1.0
+        scale[batch, p] = inv_pivot
+        used[batch, p] = True
+    t = u[:, :, cap - n :] * scale[:, :, None]  # t[i, j] = T[i, j]
+    inv = torch.empty_like(a)
+    inv[batch[:, None, None], torch.arange(n)[None, :, None], perm[:, None, :]] = t[
+        batch[:, None], perm
+    ]
+    return inv, info
+
+
+@pytest.mark.parametrize("n", [1, 5, 16, 32, 33, 56, 64])
+def test_implicit_mirror_matches_plain(n):
+    """Saddle blocks with the zero block first and last, at and around the
+    route's two capacities."""
+    a = torch.tensor(saddle_mix(n, seed=n))
+    if n > 2:
+        assert torch.all(a[:2, : n // 3, : n // 3] == 0.0)
+        assert torch.all(a[2:, n - n // 3 :, n - n // 3 :] == 0.0)
+    inv, info = implicit_gj_mirror(a)
+    assert torch.all(info == 0)
+    assert rel(inv, tprec.gj_inverse_plain(a).numpy()) <= 1e-12
+
+
+def test_implicit_mirror_reports_the_same_failing_pivot():
+    a = torch.tensor(np.concatenate([saddle_mix(56, seed=8)] * 2))
+    a[5, :, 17] = 0.0
+    _, info = implicit_gj_mirror(a)
+    _, blocked_info = blocked_gj_mirror(a, 32)
+    assert torch.equal(info, blocked_info)
+    assert info.tolist() == [0] * 5 + [18] + [0] * 2
+
+
+def test_implicit_mirror_matches_gj_inverse_pallas():
+    """As test_blocked_mirror_matches_gj_inverse_pallas, for the register
+    route's algebra, f32."""
+    rng = np.random.default_rng(3)
+    a = (rng.normal(size=(8, 64, 64)) + 64 * np.eye(64)).astype(np.float32)
+    with jax.enable_x64(False):
+        ref = np.asarray(gj_inverse_pallas(jnp.asarray(a), tile=4))
+    mine, info = implicit_gj_mirror(torch.tensor(a))
+    assert mine.dtype == torch.float32 and torch.all(info == 0)
+    assert rel(mine, ref) <= 5e-5
 
 
 @pytest.mark.parametrize("b", [1, 8, 32])
@@ -239,11 +329,16 @@ def test_kernel_matches_plain_on_card(dtype):
     tol = 1e-10 if dtype == torch.float64 else 1e-3
     f64 = dtype == torch.float64
     routes = {
-        1: "shared",
-        56: "shared",
-        121: "shared",
-        170: "blocked" if f64 else "shared",
-        208: "blocked" if f64 else "shared",
+        1: "register",
+        16: "register",
+        32: "register",
+        33: "register",
+        56: "register",
+        64: "register",
+        65: "blocked",
+        121: "blocked",
+        170: "blocked",
+        208: "blocked",
         289: "blocked",
         460: "global" if f64 else "blocked",
     }
@@ -260,7 +355,8 @@ def test_kernel_matches_plain_on_card(dtype):
     singular = torch.zeros((2, 5, 5), dtype=dtype, device="cuda")
     with pytest.raises(torch.linalg.LinAlgError, match="matrix 0"):
         kernel.gj_inverse(singular)
-    singular = torch.tensor(saddle_blocks(8, 139, 69, seed=9), device="cuda").to(dtype)
-    singular[5, :, 17] = 0.0
-    with pytest.raises(torch.linalg.LinAlgError, match="matrix 5 .* pivot 18 "):
-        kernel.gj_inverse(singular)
+    for n_m, n_b in ((139, 69), (38, 18)):  # n = 208 (blocked) and n = 56 (register)
+        singular = torch.tensor(saddle_blocks(8, n_m, n_b, seed=9), device="cuda").to(dtype)
+        singular[5, :, 17] = 0.0
+        with pytest.raises(torch.linalg.LinAlgError, match="matrix 5 .* pivot 18 "):
+            kernel.gj_inverse(singular)
