@@ -1,10 +1,13 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (mfv2d_torch) on one CUDA GPU.
 
-Run from the repository root:  python3 chip_smoke.py [--probe]
+Run from the repository root:  python3 chip_smoke.py [--probe [inverse|mass]]
 
-  --probe    phases 0, 1 and 6 only: build the kernels and hold the batched
-             inverse's routes against torch.linalg.inv, with their times
+  --probe         phases 0, 1 and 6 only: build the kernels and hold the
+                  batched inverse's routes against torch.linalg.inv, with
+                  their times
+  --probe mass    phases 0, 1 and 2 only: build the kernels and hold the M1
+                  kernel against its plain version, with its times
 
 Phases (each ends in torch.cuda.synchronize(); any failure exits non-zero):
 
@@ -12,8 +15,11 @@ Phases (each ends in torch.cuda.synchronize(); any failure exits non-zero):
 1. build both kernels (csrc/mass_edge.cu, csrc/gj_inverse.cu) for sm_90a,
    one nvcc each, started together; ptxas's registers and spills, and a
    failure if the register route of gj_inverse spills
-2. M1 kernel vs its plain PyTorch version on the card, f64 and f32, and
-   their median times at p=4, E=4096
+2. M1 kernel vs its plain PyTorch version on the card, f64 and f32, at
+   orders on both sides of the 176 KB at which the basis table stops being
+   resident in shared memory and is streamed (to p=12, and anisotropic),
+   and their median times beside the bound at p=4 and p=8 (E=4096) and
+   p=10 (E=1024) in f64: a call alone, and per call of ten back to back
 3. the golden 4x4 p=3 mixed-Poisson solution on the card, through the
    direct, static-condensation, dense and Schur CG solvers
 4. the main path at size: steady mixed Poisson, 64x64 mesh, p=4
@@ -30,6 +36,10 @@ Phases (each ends in torch.cuda.synchronize(); any failure exits non-zero):
    torch.profiler: the device busy time and the device time by name
 9. nonlinear Picard through static condensation: phase 5's setup with
    linear_solver="schur_direct"
+10. the main path on a streamed table: steady mixed Poisson, 16x16 mesh,
+   p=10, linear_solver="schur_direct" (element blocks n=320, the inverse's
+   blocked route), then Navier-Stokes Re=10, 4x4 mesh, p=10 the same way
+   (blocks n=441, the inverse's global route)
 
 The line before the last is the kernel report (JSON), the last line the
 device summary (JSON).
@@ -52,8 +62,22 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 BASE = np.array([(-1.0, -1.0), (1.0, -1.0), (1.0, 1.0), (-1.0, 1.0)])
-KERNEL_ORDERS = [(2, 2), (4, 4), (3, 5), (8, 8)]
-KERNEL_SIZES = [1, 1000, 4096]
+# The orders and batches that phases 3 to 10 give the kernel ((3, 3) at 16,
+# (4, 4) and (8, 8) at 4096, (5, 5) at 256, (10, 10) at 256 and 16) among them.
+KERNEL_ORDERS = [
+    (2, 2), (3, 3), (4, 4), (3, 5), (5, 5), (8, 8), (9, 9), (10, 10), (12, 12), (9, 3)
+]
+KERNEL_SIZES = [1, 16, 256, 1000, 4096]
+# Above p=8 the plain version's intermediates grow like p^4 per element.
+KERNEL_MAX_BATCH_HIGH = 300
+# Timed M1 shapes (orders, E), f64, and the main path whose launches the
+# report puts beside each: the shape of phase 4, the shape of phase 8, and
+# phase 10's order at a batch that fills the card.
+KERNEL_TIMED = [
+    ((4, 4), 4096, "phase 4 (p=4, E=4096)"),
+    ((8, 8), 4096, "phase 8 (p=8, E=4096)"),
+    ((10, 10), 1024, "phase 10 (p=10, E=256 and E=16)"),
+]
 KERNEL_TOL = {torch.float64: 1e-12, torch.float32: 1e-5}
 INVERSE_SIZES = [1, 16, 32, 33, 56, 64, 65, 121, 168, 170, 208, 289, 460]
 INVERSE_BATCHES = [1, 1000, 4096]
@@ -143,18 +167,23 @@ def _bound(n_bytes: float, n_flops: float) -> tuple[float, str]:
     return (bytes_ms, "bytes") if bytes_ms >= flops_ms else (flops_ms, "operations")
 
 
-def _kernel_inputs(orders, e, dtype, seed):
+def _kernel_inputs(orders, e, dtype, seed, over=3):
+    """Basis tables with ``over`` extra quadrature points a direction (the
+    solver's default is 3) and the Jacobian terms of ``e`` perturbed squares."""
     from mfv2d_torch.ops.basis import FemCache
     from mfv2d_torch.ops.mass import batch_jacobian, tensor_basis
 
-    tb = tensor_basis(FemCache(3).get_basis2d(*orders))
+    tb = tensor_basis(FemCache(over).get_basis2d(*orders))
     rng = np.random.default_rng(seed)
     corners = np.tile(BASE, (e, 1, 1)) + 0.08 * rng.normal(size=(e, 4, 2))
     jac = batch_jacobian(tb, torch.tensor(corners, device="cuda"))
     return tb, type(jac)(*(t.to(dtype).contiguous() for t in jac))
 
 
-def _median_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+def _median_ms(fn, reps: int = 20, warmup: int = 3, calls: int = 1) -> float:
+    """Median over ``reps`` of the CUDA-event time of ``calls`` calls back
+    to back, per call.  With one call the host's part of the call counts in
+    full; with several it hides behind the device's, as in a loop."""
     for _ in range(warmup):
         fn()
     times = []
@@ -162,54 +191,87 @@ def _median_ms(fn, reps: int = 20, warmup: int = 3) -> float:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(calls):
+            fn()
         end.record()
         torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / calls)
     return float(np.median(times))
 
 
-def phase2_kernel_vs_plain() -> dict:
+def phase2_kernel_vs_plain() -> list[dict]:
     from mfv2d_torch.ops import mass as plain
     from mfv2d_torch.ops.kernels import mass_edge
 
-    max_abs = 0.0
     for dtype, tol in KERNEL_TOL.items():
-        for orders in KERNEL_ORDERS:
-            for e in KERNEL_SIZES:
-                tb, jac = _kernel_inputs(orders, e, dtype, seed=e + 7 * orders[0])
+        # Phase 3 integrates with 2 extra points, every other path with 3.
+        for orders, over in [((3, 3), 2), *((orders, 3) for orders in KERNEL_ORDERS)]:
+            sizes = KERNEL_SIZES
+            if max(orders) > 8:
+                sizes = sorted({min(e, KERNEL_MAX_BATCH_HIGH) for e in sizes})
+            if over != 3:
+                sizes = [16]
+            for e in sizes:
+                tb, jac = _kernel_inputs(orders, e, dtype, seed=e + 7 * orders[0], over=over)
                 out = mass_edge.mass_edge(tb, jac)
                 ref = plain.mass_edge(tb, jac)
                 torch.cuda.synchronize()
                 if out.shape != ref.shape or out.dtype != dtype:
                     raise RuntimeError(f"kernel output {out.shape} {out.dtype}")
                 err = rel_err(out, ref)
-                if dtype == torch.float64:
-                    max_abs = max(max_abs, float((out - ref).abs().max()))
-                print(f"  {str(dtype):14s} p={orders} E={e:5d} rel err {err:.3e}")
+                print(f"  {str(dtype):14s} p={orders} +{over} E={e:5d} rel err {err:.3e}")
                 if not err <= tol:
                     raise RuntimeError(f"kernel disagrees: {err:.3e} > {tol:.0e}")
-    tb, jac = _kernel_inputs((4, 4), 4096, torch.float64, seed=1)
-    ms = _median_ms(lambda: mass_edge.mass_edge(tb, jac))
-    plain_ms = _median_ms(lambda: plain.mass_edge(tb, jac))
-    out = mass_edge.mass_edge(tb, jac)
-    torch.cuda.synchronize()
-    e, n1, nq = out.shape[0], out.shape[1], jac.det.shape[1]
-    bound_ms, bound_by = _bound(
-        (out.numel() + sum(t.numel() for t in jac)) * out.element_size(), 2 * e * n1 * n1 * nq
-    )
-    print(
-        f"phase 2: kernel agrees; p=(4, 4) E=4096 f64 median: kernel {ms:.4f} ms,"
-        f" plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})"
-    )
-    return {
-        "max_abs_err": max_abs,
-        "ms": ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": bound_by,
-        "library_ms": None,
-    }
+                del out, ref
+    timed = []
+    for orders, e, path in KERNEL_TIMED:
+        tb, jac = _kernel_inputs(orders, e, torch.float64, seed=1)
+        plan = mass_edge.launch_plan(
+            tb.bh.shape[0], tb.bv.shape[0], tb.w.size, torch.float64
+        )
+        # Through the wrapper (plan, output allocation, launch): one call
+        # alone, with the host's part; ten calls back to back beside it.
+        ms = _median_ms(lambda: mass_edge.mass_edge(tb, jac))
+        back_to_back_ms = _median_ms(lambda: mass_edge.mass_edge(tb, jac), calls=10)
+        plain_ms = _median_ms(lambda: plain.mass_edge(tb, jac), reps=10)
+        out = mass_edge.mass_edge(tb, jac)
+        ref = plain.mass_edge(tb, jac)
+        torch.cuda.synchronize()
+        max_abs = float((out - ref).abs().max())
+        err = rel_err(out, ref)
+        if not err <= KERNEL_TOL[torch.float64]:
+            raise RuntimeError(f"kernel disagrees at the timed shape: {err:.3e}")
+        n1, nq = out.shape[1], jac.det.shape[1]
+        # The least work: every output written and every Jacobian term read
+        # once; by the symmetry of M1, n1 (n1 + 1) / 2 sums of nq products.
+        bound_ms, bound_by = _bound(
+            (out.numel() + sum(t.numel() for t in jac)) * out.element_size(),
+            e * n1 * (n1 + 1) * nq,
+        )
+        table = "resident" if plan.stages == 1 else f"streamed in chunks of {plan.chunk}"
+        print(
+            f"phase 2: kernel agrees; p={orders} E={e} f64 median: kernel {ms:.4f} ms"
+            f" ({back_to_back_ms:.4f} ms per call of ten back to back),"
+            f" plain {plain_ms:.4f} ms,"
+            f" bound {bound_ms:.4f} ms ({bound_by});"
+            f" warp tile {plan.mr}x{plan.nc}, table {table}, {plan.group} elements"
+            f" a step, {plan.warps} warps, {plan.smem_bytes} bytes of shared memory"
+        )
+        timed.append(
+            {
+                "shape": f"p={orders[0]} E={e}",
+                "launches_in": path,
+                "max_abs_err": max_abs,
+                "ms": ms,
+                "ms_back_to_back": back_to_back_ms,
+                "plain_ms": plain_ms,
+                "bound_ms": bound_ms,
+                "bound_by": bound_by,
+                "library_ms": None,
+            }
+        )
+        del out, ref
+    return timed
 
 
 def phase3_golden() -> None:
@@ -325,13 +387,14 @@ def phase4_main_path() -> int:
     return launches
 
 
-def _navier_stokes(linear_solver: str) -> tuple[int, float, float]:
-    """Phase 5's Navier-Stokes solve; returns iterations, velocity error, wall."""
+def _navier_stokes(linear_solver: str, n: int = 16, p: int = 5) -> tuple[int, float, float]:
+    """Phase 5's Navier-Stokes solve (or its setup on another mesh and
+    order); returns iterations, velocity error, wall."""
     import mfv2d_torch as mf
     from mfv2d_torch.models import flow
 
     model = flow.navier_stokes(10.0)
-    mesh = mf.examples.unit_square_mesh(16, 16, 5)
+    mesh = mf.examples.unit_square_mesh(n, n, p)
     bc = mf.BoundaryCondition2DSteady(
         model.velocity, mesh.boundary_indices, flow.ns_velocity_exact
     )
@@ -345,7 +408,7 @@ def _navier_stokes(linear_solver: str) -> tuple[int, float, float]:
             relaxation=0.7,
             linear_solver=linear_solver,
         ),
-        recon_order=10,
+        recon_order=max(10, p),
         device="cuda",
     )
     torch.cuda.synchronize()
@@ -600,66 +663,117 @@ def _device_profile(label: str, fn) -> None:
         print(f"    {us / 1e3:11.3f} ms {count:7d}  {key[:80]}")
 
 
-def phase8_static_condensation() -> None:
-    from mfv2d_torch.ops.kernels import gj_inverse
+def phase8_static_condensation() -> int:
+    from mfv2d_torch.ops.kernels import gj_inverse, mass_edge
 
     route = gj_inverse.route(208, torch.float64)
     print(f"  n=208 f64 blocks take the {route} route")
     if route != "blocked":
         raise RuntimeError(f"the p=8 blocks take the {route} route, not the blocked one")
     gj_inverse.launches = 0
+    mass_edge.launches = 0
     _mixed_poisson_at_size(64, 8, "schur_direct", phase=8)
-    _require_launches(8, gj_inverse=gj_inverse.launches)
+    launches = mass_edge.launches
+    _require_launches(8, gj_inverse=gj_inverse.launches, mass_edge=launches)
     _device_profile(
         "phase 8, warm", lambda: _mixed_poisson_at_size(64, 8, "schur_direct", phase=8)
     )
+    return launches
 
 
 def phase9_picard_condensed(direct_iterations: int) -> None:
-    from mfv2d_torch.ops.kernels import gj_inverse
+    from mfv2d_torch.ops.kernels import gj_inverse, mass_edge
 
     gj_inverse.launches = 0
+    mass_edge.launches = 0
     iters, err, wall = _navier_stokes("schur_direct")
     print(
         f"phase 9: Navier-Stokes Re=10 16x16 p=5 schur_direct: {iters} Picard"
         f" iterations (direct: {direct_iterations}), velocity error {err:.3e},"
         f" wall {wall:.3f} s"
     )
-    _require_launches(9, gj_inverse=gj_inverse.launches)
+    _require_launches(9, gj_inverse=gj_inverse.launches, mass_edge=mass_edge.launches)
     if abs(iters - direct_iterations) > 1:
         raise RuntimeError("schur_direct Picard iterations differ from direct by > 1")
+
+
+def phase10_streamed_table() -> int:
+    from mfv2d_torch.ops.kernels import gj_inverse, mass_edge
+
+    plan = mass_edge.launch_plan(110, 110, 196, torch.float64)
+    route = gj_inverse.route(320, torch.float64)
+    print(
+        f"  p=10 f64: M1 table in {plan.stages} ring stages of {plan.chunk} points,"
+        f" {plan.smem_bytes} bytes of shared memory; n=320 blocks take the {route} route"
+    )
+    if plan.stages == 1 or route != "blocked":
+        raise RuntimeError("phase 10 does not reach the streamed table and the blocked route")
+    gj_inverse.launches = 0
+    mass_edge.launches = 0
+    _mixed_poisson_at_size(16, 10, "schur_direct", phase=10)
+    launches = mass_edge.launches
+    _require_launches(10, gj_inverse=gj_inverse.launches, mass_edge=launches)
+
+    # The first model whose element blocks (n = 121 + 220 + 100 = 441) pass
+    # the blocked route's sizes: Navier-Stokes at p=10, on a 4x4 mesh.
+    route = gj_inverse.route(441, torch.float64)
+    gj_inverse.launches = 0
+    mass_edge.launches = 0
+    iters, err, wall = _navier_stokes("schur_direct", n=4, p=10)
+    print(
+        f"phase 10: Navier-Stokes Re=10 4x4 p=10 schur_direct: {iters} Picard"
+        f" iterations, velocity error {err:.3e}, wall {wall:.3f} s; n=441 blocks"
+        f" take the {route} route"
+    )
+    _require_launches(10, gj_inverse=gj_inverse.launches, mass_edge=mass_edge.launches)
+    return launches
 
 
 def main() -> int:
     import mfv2d_torch  # noqa: F401  (fails outside a checkout of the repo)
 
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--probe", action="store_true", help="phases 0, 1 and 6 only")
+    parser.add_argument(
+        "--probe",
+        nargs="?",
+        const="inverse",
+        choices=("inverse", "mass"),
+        help="phases 0 and 1, then only phase 6 (inverse, the default) or phase 2 (mass)",
+    )
     args = parser.parse_args()
 
     phase0_device()
     phase1_build()
-    if args.probe:
+    if args.probe == "inverse":
         print(json.dumps(phase6_inverse_vs_plain()))
         return 0
     mass_timing = phase2_kernel_vs_plain()
+    if args.probe == "mass":
+        print(json.dumps(mass_timing))
+        return 0
     phase3_golden()
-    mass_launches = phase4_main_path()
+    mass_launches = [phase4_main_path()]
     direct_iterations = phase5_picard()
     inverse_timing = phase6_inverse_vs_plain()
     inverse_launches = phase7_schur_cg()
-    phase8_static_condensation()
+    mass_launches.append(phase8_static_condensation())
     phase9_picard_condensed(direct_iterations)
+    mass_launches.append(phase10_streamed_table())
+    # One mass_edge entry per timed shape, each with the launches of the
+    # main path its "launches_in" names: phases 4, 8 and 10.
     report = {
         "kernels": [
-            {
-                "name": "mass_edge",
-                "route": "cuda",
-                "source": "mfv2d_torch/csrc/mass_edge.cu",
-                "replaces": "mfv2d_tpu/ops/pallas_mass.py:113",
-                "launches": mass_launches,
-                **mass_timing,
-            },
+            *(
+                {
+                    "name": "mass_edge",
+                    "route": "cuda",
+                    "source": "mfv2d_torch/csrc/mass_edge.cu",
+                    "replaces": "mfv2d_tpu/ops/pallas_mass.py:113",
+                    "launches": launches,
+                    **timing,
+                }
+                for launches, timing in zip(mass_launches, mass_timing, strict=True)
+            ),
             {
                 "name": "gj_inverse",
                 "route": "cuda",

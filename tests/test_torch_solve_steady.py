@@ -81,13 +81,24 @@ def test_full_solution_matches_golden_fixture():
     assert rel(solution, FIX["solution_mixed_poisson_4x4_p3"]) <= 1e-10
 
 
-def _mixed_poisson(mf, poisson):
+def _mixed_poisson(mf, poisson, n=4, p=3):
     model = poisson.mixed_poisson()
     return (
-        mf.examples.unit_square_mesh(4, 4, 3),
+        mf.examples.unit_square_mesh(n, n, p),
         mf.SystemSettings(model.system),
         mf.SolverSettings(mf.ConvergenceSettings(20, 1e-12, 0.0)),
     )
+
+
+def _mixed_poisson_p9(mf, poisson):
+    """Above p=8 the 1-form mass matrices no longer fit a whole-table kernel
+    layout (over-integration 3); the port must take these orders as the JAX
+    package does."""
+    return _mixed_poisson(mf, poisson, n=2, p=9)
+
+
+def _mixed_poisson_p10(mf, poisson):
+    return _mixed_poisson(mf, poisson, n=2, p=10)
 
 
 def _direct_poisson(mf, poisson):
@@ -131,6 +142,8 @@ def _ns_anderson_initial(mf, flow):
 
 CASES = {
     "mixed_poisson": (_mixed_poisson, (jpoisson, tpoisson)),
+    "mixed_poisson_p9": (_mixed_poisson_p9, (jpoisson, tpoisson)),
+    "mixed_poisson_p10": (_mixed_poisson_p10, (jpoisson, tpoisson)),
     "direct_poisson_strong_bc": (_direct_poisson, (jpoisson, tpoisson)),
     "navier_stokes": (_ns_plain, (jflow, tflow)),
     "navier_stokes_anderson_ic": (_ns_anderson_initial, (jflow, tflow)),
