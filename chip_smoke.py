@@ -14,11 +14,13 @@ Phases (each ends in torch.cuda.synchronize(); any failure exits non-zero):
 0. card, power limit, torch/CUDA/nvcc versions; exit 1 without a GPU
 1. build both kernels (csrc/mass_edge.cu, csrc/gj_inverse.cu) for sm_90a,
    one nvcc each, started together; ptxas's registers and spills, and a
-   failure if the register route of gj_inverse spills
+   failure if the register route of gj_inverse spills or a panel kernel
+   has a stack frame
 2. M1 kernel vs its plain PyTorch version on the card, f64 and f32, at
    orders on both sides of the 176 KB at which the basis table stops being
    resident in shared memory and is streamed (to p=12, and anisotropic),
-   and their median times beside the bound at p=4 and p=8 (E=4096) and
+   and their median times beside the bound and one einsum over the stacked
+   table and the metric (the library call) at p=4 and p=8 (E=4096) and
    p=10 (E=1024) in f64: a call alone, and per call of ten back to back
 3. the golden 4x4 p=3 mixed-Poisson solution on the card, through the
    direct, static-condensation, dense and Schur CG solvers
@@ -26,10 +28,14 @@ Phases (each ends in torch.cuda.synchronize(); any failure exits non-zero):
 5. nonlinear Picard: steady Navier-Stokes Re=10, 16x16 mesh, p=5
 6. batched-inverse kernel vs its plain version on the card: saddle
    matrices and real element blocks, f64 and f32, every route that n
-   chooses (register up to 64, blocked, global), a singular batch on the
-   register and blocked routes, and median times beside torch.linalg.inv
-   and the bound on every route: n=56 (E=4096), the phase-9 blocks (n=121,
-   E=256), n=208 (E=4096), n=289 and n=460 (E=1000)
+   chooses (register up to 64, blocked to 218, streamed to 1024, global at
+   1056), a singular batch on the register, blocked and streamed routes,
+   and median times beside torch.linalg.inv and the bound on every route
+   but the global one (each must beat it): n=56 (E=4096), the phase-9
+   blocks (n=121, E=256), n=208 (E=4096), n=289 and n=460 (E=1000), and
+   phase 10's Poisson blocks (n=320, E=256) and Navier-Stokes blocks
+   (n=441, E=16; also ten calls back to back); the kernels one call
+   launches, counted under torch.profiler
 7. Schur CG at size: mixed Poisson 64x64 p=4, linear_solver="schur"
 8. static condensation at size: mixed Poisson 64x64 p=8,
    linear_solver="schur_direct", then the same solve again, warm, under
@@ -37,9 +43,9 @@ Phases (each ends in torch.cuda.synchronize(); any failure exits non-zero):
 9. nonlinear Picard through static condensation: phase 5's setup with
    linear_solver="schur_direct"
 10. the main path on a streamed table: steady mixed Poisson, 16x16 mesh,
-   p=10, linear_solver="schur_direct" (element blocks n=320, the inverse's
-   blocked route), then Navier-Stokes Re=10, 4x4 mesh, p=10 the same way
-   (blocks n=441, the inverse's global route)
+   p=10, linear_solver="schur_direct" (element blocks n=320), then
+   Navier-Stokes Re=10, 4x4 mesh, p=10 the same way (blocks n=441); both
+   on the inverse's streamed route
 
 The line before the last is the kernel report (JSON), the last line the
 device summary (JSON).
@@ -79,18 +85,27 @@ KERNEL_TIMED = [
     ((10, 10), 1024, "phase 10 (p=10, E=256 and E=16)"),
 ]
 KERNEL_TOL = {torch.float64: 1e-12, torch.float32: 1e-5}
-INVERSE_SIZES = [1, 16, 32, 33, 56, 64, 65, 121, 168, 170, 208, 289, 460]
+INVERSE_SIZES = [
+    1, 16, 32, 33, 56, 64, 65, 121, 168, 170, 208, 289, 441, 460, 625, 1024, 1056
+]
 INVERSE_BATCHES = [1, 1000, 4096]
-INVERSE_MAX_BATCH = {289: 1000, 460: 1000}
+INVERSE_MAX_BATCH = {289: 1000, 441: 1000, 460: 1000, 625: 256, 1024: 64, 1056: 16}
 # Timed inverse cases, each on the route its n takes: the p=4 blocks'
-# size (phase 7), the real phase-9 batch, the p=8 blocks' sizes, and n=460.
+# size (phase 7), the real phase-9 batch, the p=8 blocks' sizes, n=460,
+# and the real phase-10 batches.
 INVERSE_TIMED = [
     "saddle n=56 E=4096",
     "phase-9 blocks n=121 E=256",
     "saddle n=208 E=4096",
     "saddle n=289 E=1000",
     "saddle n=460 E=1000",
+    "phase-10 Poisson blocks n=320 E=256",
+    "phase-10 blocks n=441 E=16",
 ]
+# The route each timed n takes in f64; every timed case must beat
+# torch.linalg.inv.
+INVERSE_ROUTES = {56: "register", 121: "blocked", 208: "blocked", 289: "streamed",
+                  320: "streamed", 441: "streamed", 460: "streamed"}
 INVERSE_TOL = {torch.float64: 1e-10, torch.float32: 1e-3}
 # The H100 SXM's HBM rate and FP64 peak (tensor cores; NVIDIA data sheet):
 # the bound of a kernel is the larger of its compulsory bytes and its
@@ -150,11 +165,18 @@ def phase1_build() -> None:
             found = re.search(r"(?:Compiling entry function|Function properties for) '?(\w+)", line)
             if found:
                 entry = found.group(1)
-            spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            spills = re.search(
+                r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", line
+            )
             if spills and "gj_inverse_register_kernel" in entry:
                 register_entries.append(entry)
-                if spills.group(1) != "0" or spills.group(2) != "0":
+                if spills.group(2) != "0" or spills.group(3) != "0":
                     raise RuntimeError(f"the register route spills: {entry}: {line.strip()}")
+            # The panel rows live in registers: a stack frame means they went
+            # to local memory.
+            panel = "gj_inverse_blocked_kernel" in entry or "gj_streamed_panel_kernel" in entry
+            if spills and panel and spills.group(1) != "0":
+                raise RuntimeError(f"a panel kernel has a stack frame: {entry}: {line.strip()}")
     if "gj_inverse" in _build.build_logs and not register_entries:
         raise RuntimeError("ptxas reported no register-route kernel")
     print(f"  register route: 0 spill bytes in {len(set(register_entries))} instantiations")
@@ -234,13 +256,29 @@ def phase2_kernel_vs_plain() -> list[dict]:
         ms = _median_ms(lambda: mass_edge.mass_edge(tb, jac))
         back_to_back_ms = _median_ms(lambda: mass_edge.mass_edge(tb, jac), calls=10)
         plain_ms = _median_ms(lambda: plain.mass_edge(tb, jac), reps=10)
+        # The library call: one einsum over the stacked 1-form table
+        # phi[i, q, a] (bh in component 0, bv in component 1) and the
+        # [E, nq, 2, 2] metric, which it takes as given; the kernel forms
+        # the metric from the Jacobian terms itself.
+        k_hh, k_vv, k_hv = plain._edge_metric(jac, tb.w)
+        metric = torch.stack([k_hh, k_hv, k_hv, k_vv], dim=-1).unflatten(-1, (2, 2))
+        bh, bv = plain.as_like(tb.bh, k_hh), plain.as_like(tb.bv, k_hh)
+        phi = bh.new_zeros((bh.shape[0] + bv.shape[0], bh.shape[1], 2))
+        phi[: bh.shape[0], :, 0] = bh
+        phi[bh.shape[0] :, :, 1] = bv
+        def library_call():
+            return torch.einsum("iqa,eqab,jqb->eij", phi, metric, phi)
+
+        library_ms = _median_ms(library_call, reps=10)
         out = mass_edge.mass_edge(tb, jac)
         ref = plain.mass_edge(tb, jac)
+        library = library_call()
         torch.cuda.synchronize()
         max_abs = float((out - ref).abs().max())
         err = rel_err(out, ref)
-        if not err <= KERNEL_TOL[torch.float64]:
-            raise RuntimeError(f"kernel disagrees at the timed shape: {err:.3e}")
+        library_err = rel_err(library, ref)
+        if not max(err, library_err) <= KERNEL_TOL[torch.float64]:
+            raise RuntimeError(f"kernel or einsum disagrees: {err:.3e}, {library_err:.3e}")
         n1, nq = out.shape[1], jac.det.shape[1]
         # The least work: every output written and every Jacobian term read
         # once; by the symmetry of M1, n1 (n1 + 1) / 2 sums of nq products.
@@ -252,7 +290,7 @@ def phase2_kernel_vs_plain() -> list[dict]:
         print(
             f"phase 2: kernel agrees; p={orders} E={e} f64 median: kernel {ms:.4f} ms"
             f" ({back_to_back_ms:.4f} ms per call of ten back to back),"
-            f" plain {plain_ms:.4f} ms,"
+            f" plain {plain_ms:.4f} ms, library einsum {library_ms:.4f} ms,"
             f" bound {bound_ms:.4f} ms ({bound_by});"
             f" warp tile {plan.mr}x{plan.nc}, table {table}, {plan.group} elements"
             f" a step, {plan.warps} warps, {plan.smem_bytes} bytes of shared memory"
@@ -267,10 +305,10 @@ def phase2_kernel_vs_plain() -> list[dict]:
                 "plain_ms": plain_ms,
                 "bound_ms": bound_ms,
                 "bound_by": bound_by,
-                "library_ms": None,
+                "library_ms": library_ms,
             }
         )
-        del out, ref
+        del out, ref, library
     return timed
 
 
@@ -472,6 +510,24 @@ def _element_blocks(model_system, mesh) -> np.ndarray:
     return evaluator.element_matrices(compiled.lhs_blocks)[0]
 
 
+def _kernel_launches(fn, part: str) -> dict[str, int]:
+    """The device kernels whose name holds ``part`` that one call of ``fn``
+    launched, by name, as torch.profiler's device trace counts them."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    counts = {}
+    for ev in prof.key_averages():
+        if ev.device_type == torch.autograd.DeviceType.CUDA and part in ev.key:
+            name = re.search(r"(\w*gj_\w+)", ev.key)
+            key = name.group(1) if name else ev.key
+            counts[key] = counts.get(key, 0) + ev.count
+    return counts
+
+
 def phase6_inverse_vs_plain() -> dict:
     import mfv2d_torch as mf
     from mfv2d_torch.models import flow, poisson
@@ -498,7 +554,18 @@ def phase6_inverse_vs_plain() -> dict:
     ns_blocks = _element_blocks(
         flow.navier_stokes(10.0).system, mf.examples.unit_square_mesh(16, 16, 5)
     )
-    for name, blocks in (("phase-7 blocks", poisson_blocks), ("phase-9 blocks", ns_blocks)):
+    poisson10_blocks = _element_blocks(
+        poisson.mixed_poisson().system, mf.examples.unit_square_mesh(16, 16, 10)
+    )
+    ns10_blocks = _element_blocks(
+        flow.navier_stokes(10.0).system, mf.examples.unit_square_mesh(4, 4, 10)
+    )
+    for name, blocks in (
+        ("phase-7 blocks", poisson_blocks),
+        ("phase-9 blocks", ns_blocks),
+        ("phase-10 Poisson blocks", poisson10_blocks),
+        ("phase-10 blocks", ns10_blocks),
+    ):
         print(f"  {name}: {blocks.shape}, cond of block 0 {np.linalg.cond(blocks[0]):.3e}")
         cases[f"{name} n={blocks.shape[1]} E={blocks.shape[0]}"] = torch.tensor(
             blocks, device="cuda"
@@ -516,11 +583,11 @@ def phase6_inverse_vs_plain() -> dict:
             err = rel_err(out, ref)
             if dtype == torch.float64:
                 max_abs = max(max_abs, float((out - ref).abs().max()))
-            print(f"  {str(dtype):14s} {name:28s} rel err {err:.3e}")
+            print(f"  {str(dtype):14s} {name:36s} rel err {err:.3e}")
             if not err <= tol:
                 raise RuntimeError(f"inverse kernel disagrees: {err:.3e} > {tol:.0e}")
 
-    for n in (56, 121, 208):
+    for n in (56, 121, 208, 460):
         for dtype in INVERSE_TOL:
             singular = cases[f"saddle n={n} E=1000"][:8].to(dtype).clone()
             singular[5, :, 17] = 0.0
@@ -528,8 +595,8 @@ def phase6_inverse_vs_plain() -> dict:
                 gj_inverse.gj_inverse(singular)
             except torch.linalg.LinAlgError as exc:
                 print(f"  singular batch n={n} {gj_inverse.route(n, dtype)} ({dtype}) raised: {exc}")
-                if "matrix 5 " not in str(exc):
-                    raise RuntimeError("the singular batch named the wrong matrix") from exc
+                if "matrix 5 " not in str(exc) or " pivot 18 " not in str(exc):
+                    raise RuntimeError("the singular batch named the wrong pivot") from exc
             else:
                 raise RuntimeError("a singular batch did not raise")
 
@@ -539,25 +606,33 @@ def phase6_inverse_vs_plain() -> dict:
     for name in INVERSE_TIMED:
         a = cases[name]
         e, n = a.shape[0], a.shape[1]
-        reps = 5 if n > 439 else 20  # the global route takes about a second a call
-        ms = _median_ms(lambda: gj_inverse.gj_inverse(a), reps=reps)
-        library_ms = _median_ms(lambda: gj_inverse_plain(a), reps=reps)
+        ms = _median_ms(lambda: gj_inverse.gj_inverse(a))
+        library_ms = _median_ms(lambda: gj_inverse_plain(a))
+        timing = {}
+        if e <= 16:  # a batch this small may be led by the launches
+            timing["ms_back_to_back"] = _median_ms(lambda: gj_inverse.gj_inverse(a), calls=10)
+            timing["library_ms_back_to_back"] = _median_ms(lambda: gj_inverse_plain(a), calls=10)
         torch.cuda.synchronize()
         bound_ms, bound_by = _bound(2 * a.numel() * a.element_size(), 2 * n**3 * e)
         route = gj_inverse.route(n, torch.float64)
+        by_kernel = _kernel_launches(lambda: gj_inverse.gj_inverse(a), "gj_")
+        launches = sum(by_kernel.values()) or None  # None: the profiler saw no kernel
         print(
             f"phase 6: inverse kernel agrees; {name} f64 {route} route median:"
             f" kernel {ms:.4f} ms, torch.linalg.inv {library_ms:.4f} ms,"
-            f" bound {bound_ms:.4f} ms ({bound_by})"
+            f" bound {bound_ms:.4f} ms ({bound_by}); kernel launches in one call"
+            f" (torch.profiler) {launches}: {by_kernel}"
+            + "".join(f", {k} {v:.4f} ms" for k, v in timing.items())
         )
         routes.append(
             {"n": n, "E": e, "route": route, "ms": ms, "library_ms": library_ms,
-             "bound_ms": bound_ms, "bound_by": bound_by}
+             "bound_ms": bound_ms, "bound_by": bound_by, "launches_per_call": launches,
+             **timing}
         )
-    for n, want in ((56, "register"), (208, "blocked")):
-        timed = next(r for r in routes if r["n"] == n)
+    for timed in routes:
+        want = INVERSE_ROUTES[timed["n"]]
         if timed["route"] != want or not timed["ms"] < timed["library_ms"]:
-            raise RuntimeError(f"the {want} route at n={n} does not beat torch.linalg.inv: {timed}")
+            raise RuntimeError(f"the {want} route does not beat torch.linalg.inv: {timed}")
     first = routes[0]
     return {
         "max_abs_err": max_abs,
@@ -697,7 +772,7 @@ def phase9_picard_condensed(direct_iterations: int) -> None:
         raise RuntimeError("schur_direct Picard iterations differ from direct by > 1")
 
 
-def phase10_streamed_table() -> int:
+def phase10_streamed_table() -> tuple[int, int]:
     from mfv2d_torch.ops.kernels import gj_inverse, mass_edge
 
     plan = mass_edge.launch_plan(110, 110, 196, torch.float64)
@@ -706,17 +781,19 @@ def phase10_streamed_table() -> int:
         f"  p=10 f64: M1 table in {plan.stages} ring stages of {plan.chunk} points,"
         f" {plan.smem_bytes} bytes of shared memory; n=320 blocks take the {route} route"
     )
-    if plan.stages == 1 or route != "blocked":
-        raise RuntimeError("phase 10 does not reach the streamed table and the blocked route")
+    if plan.stages == 1 or route != "streamed":
+        raise RuntimeError("phase 10 does not reach the streamed table and the streamed route")
     gj_inverse.launches = 0
     mass_edge.launches = 0
     _mixed_poisson_at_size(16, 10, "schur_direct", phase=10)
     launches = mass_edge.launches
     _require_launches(10, gj_inverse=gj_inverse.launches, mass_edge=launches)
 
-    # The first model whose element blocks (n = 121 + 220 + 100 = 441) pass
-    # the blocked route's sizes: Navier-Stokes at p=10, on a 4x4 mesh.
+    # Navier-Stokes at p=10 (element blocks n = 121 + 220 + 100 = 441), on
+    # a 4x4 mesh.
     route = gj_inverse.route(441, torch.float64)
+    if route != "streamed":
+        raise RuntimeError(f"the n=441 blocks take the {route} route, not the streamed one")
     gj_inverse.launches = 0
     mass_edge.launches = 0
     iters, err, wall = _navier_stokes("schur_direct", n=4, p=10)
@@ -726,7 +803,7 @@ def phase10_streamed_table() -> int:
         f" take the {route} route"
     )
     _require_launches(10, gj_inverse=gj_inverse.launches, mass_edge=mass_edge.launches)
-    return launches
+    return launches, gj_inverse.launches
 
 
 def main() -> int:
@@ -758,9 +835,12 @@ def main() -> int:
     inverse_launches = phase7_schur_cg()
     mass_launches.append(phase8_static_condensation())
     phase9_picard_condensed(direct_iterations)
-    mass_launches.append(phase10_streamed_table())
+    phase10_mass_launches, phase10_inverse_launches = phase10_streamed_table()
+    mass_launches.append(phase10_mass_launches)
     # One mass_edge entry per timed shape, each with the launches of the
-    # main path its "launches_in" names: phases 4, 8 and 10.
+    # main path its "launches_in" names: phases 4, 8 and 10.  The inverse's
+    # launches are phase 7's (register route) and, for the streamed route,
+    # phase 10's Navier-Stokes solve.
     report = {
         "kernels": [
             *(
@@ -780,6 +860,7 @@ def main() -> int:
                 "source": "mfv2d_torch/csrc/gj_inverse.cu",
                 "replaces": "mfv2d_tpu/ops/pallas_factor.py:136",
                 "launches": inverse_launches,
+                "launches_streamed_phase10": phase10_inverse_launches,
                 **inverse_timing,
             },
         ]

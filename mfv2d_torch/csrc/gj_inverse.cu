@@ -94,9 +94,9 @@
 //     128 bytes a cycle; with the owner's stores that is about 190 cycles
 //     of the SM's pipe per warp and step, about 2,200 per step for the 12
 //     warps of an SM.
-//   - Blocked route (64 < n <= 439 in f64, 512 in f32): panels of kPanel = 32
-//     columns.  Each thread holds one panel row (two where n > 256) in
-//     registers and the block sweeps the n x 32 panel with the same pivoting,
+//   - Blocked route (64 < n <= 218): panels of kPanel = 32
+//     columns.  Each thread holds one panel row in registers and the
+//     block sweeps the n x 32 panel with the same pivoting,
 //     two barriers a step: one for the pivot's partial maxima, one for the
 //     scaled pivot row.  The panel then holds M = [A_KK^-1 ; -A_OK A_KK^-1]
 //     (K: the 32 pivot rows, O: the others), the inverse's columns of that
@@ -109,17 +109,69 @@
 //     590 GB at n = 208, E = 4096, which is at least 6.8 ms at 3.35 TB/s, so
 //     these passes bound the route, and the n pivot steps, each a chain of
 //     shuffles, barriers and a division, come second.  Two blocks of 110 KB
-//     share an SM at n <= 256, one above.  Covers the p = 5 Navier-Stokes
-//     blocks (n = 121) and the p = 8 blocks (n = 208, 289).
-//   - Global route (above that): the unblocked body in place on the output
-//     in global memory, with only the pivot row and column staged in shared
-//     memory; each of the n steps rewrites the whole matrix through L2 or
-//     HBM.  Kept so that no n fails; no element block of the repo's models
-//     takes it.
+//     share an SM at n = 208; above n = 218 one block fills an SM, and there
+//     the streamed route is faster (tools/gj_inverse_ablation.py: 14.5 ms
+//     against 17.1 ms at n = 208, E = 4096; 5.8 ms against 5.0 ms at
+//     n = 224, E = 1000).  Covers the p = 5 Navier-Stokes blocks (n = 121)
+//     and the p = 8 mixed Poisson blocks (n = 208).  The kernel takes
+//     n <= 256, one panel row a thread.
+//   - Streamed route (219 <= n <= 1024): the
+//     blocked route's panel sweep and tile update, each its own launch, so
+//     that nothing of size n x b sits in shared memory on the update side
+//     and one matrix spreads over many blocks.  For each panel k0 (b = 32
+//     columns up to n = 512, b = 16 above, so that a thread's panel rows
+//     hold at most 64 entries):
+//       * panel launch, one block of 256 threads per matrix: the n x b
+//         panel is read into registers (two or four rows a thread),
+//         swept with the blocked route's pivoting (each row rotated one
+//         place a step, so that column k always sits in the first
+//         register: no select tree), and written to the
+//         output, where it is the inverse's own columns M; the panel's row
+//         gather src (the row of the matrix as read that lands in each row)
+//         goes to a scratch array, and so does the running row permutation
+//         sigma, sigma'[i] = sigma[src[i]];
+//       * update launch, one block of 128 threads per matrix and column
+//         tile, ceil(n / b) - 1 of them per matrix (13 x 16 = 208 blocks at
+//         n = 441, E = 16):
+//         C'[i] = (i in K ? 0 : C[src[i]]) + sum_t M[i,t] C[src[k0 + t]].
+//         The b x b pivot rows C[src[K]] and the rows C[K] as read are
+//         staged first; then row chunks of 32 rows of M and C stream
+//         through a three-stage ring of cp.async copies.  A row i outside K
+//         reads either its own row or one of the rows K (the panel's swaps
+//         only move rows of K out of K), so after the staging a block
+//         writes no row that it still has to read, and blocks of one matrix
+//         own disjoint column tiles.  The rank-b product runs on the FP64
+//         tensor cores (mma.sync.m16n8k4.f64, each warp 16 rows by b / 2
+//         columns, the accumulators starting from the kept C rows); f32
+//         keeps the same ownership with FP32 FMAs (TF32 products were not
+//         tried: their 10-bit mantissa is near the 1e-3 tolerance).
+//       then one launch undoes the row swaps as column swaps: column c of
+//       the result is column j of the swept matrix where sigma[j] = c.
+//     2 ceil(n / b) + 1 launches a call (31 at n = 460) on the caller's
+//     stream, after a clear of info; each launch first reads info[e], so
+//     a matrix whose panel failed is left alone by the rest of the call.
+//     The matrix crosses HBM twice per panel (C read, C' written; M is
+//     re-read from L2 by the matrix's tile blocks, which run side by side),
+//     about 51 GB at n = 460, E = 1000, 15 ms at 3.35 TB/s; the n pivot
+//     steps, a chain of barriers in one block per matrix, come next.  As
+//     measured there (tools/gj_inverse_ablation.py, H100 SXM at 700 W):
+//     31.9 ms a call, 20.9 ms without the products (the passes), 28.1 ms
+//     without the pivot steps, 0.23 ms for the 31 launches alone; a ring
+//     of two stages, chunks of 64 rows on 8 warps and 2 warps each owning
+//     whole tile rows were each within 5%, panels of 16 columns twice as
+//     slow.
+//   - Global route (above n = 1024): the unblocked body in place on the
+//     output in global memory, with only the pivot row and column staged in
+//     shared memory; each of the n steps rewrites the whole matrix through
+//     L2 or HBM.  Kept so that no n fails: the streamed panel holds at
+//     most 64 entries a thread (four rows of 16 at n = 1024).  The models
+//     reach it from Navier-Stokes at p = 16 (n = 289 + 544 + 256 = 1089);
+//     it is not timed, and chip_smoke.py phase 6 and the `cuda` test hold
+//     it against torch.linalg.inv at n = 1056.
 // The row swaps of the blocked and global routes are undone as column swaps
-// at the end.  DMMA (mma.sync.m8n8k4.f64) with cp.async or TMA staging for
-// the blocked route's update, and fewer passes over the matrix, are left to
-// later work.
+// at the end.  Which route an n takes is decided by the wrapper
+// (mfv2d_torch/ops/kernels/gj_inverse.py, `route`), where it is checked
+// without a card; launch() below only validates it.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC; the C entry points below are loaded with ctypes.
@@ -153,8 +205,6 @@ constexpr int kRowsPerThread = 4;
 constexpr int kRowChunk = kTileRowThreads * kRowsPerThread;
 // Global loads each thread keeps in flight when it fills a tile.
 constexpr int kBatch = 16;
-// Panel rows a thread holds in registers: the route takes n <= 512.
-constexpr int kMaxBlockedRows = 2;
 
 // Register route: the largest n, and threads per block (2 groups of 64 or
 // 4 of 32).
@@ -167,7 +217,26 @@ constexpr int kRegisterThreads = 128;
 template <typename T>
 constexpr int register_min_blocks(int len) { return sizeof(T) == 8 && len > 56 ? 2 : 3; }
 
-enum Route : int { kRegisterRoute = 0, kBlockedRoute = 1, kGlobalRoute = 2 };
+// Streamed route: the largest n, the update's threads, rows per ring stage
+// and stages, and the padding of a staged row (kB + 4 entries: the
+// fragment loads of a warp then take two shared-memory wavefronts, the
+// least for 32 lanes of 8 bytes); the column swaps' threads and rows.
+constexpr int kStreamedMaxN = 1024;
+constexpr int kStreamThreads = 128;
+constexpr int kStreamRows = 32;
+constexpr int kStreamStages = 3;
+constexpr int kStreamPad = 4;
+// The update's warps: row pair warp % kRowPairs of a chunk, column group
+// warp / kRowPairs of the tile.
+constexpr int kRowPairs = kStreamRows / 16;
+constexpr int kColGroups = kStreamThreads / kWarp / kRowPairs;
+static_assert(kColGroups >= 1 && kColGroups * kRowPairs * kWarp == kStreamThreads,
+              "the update's warps cover a chunk's row pairs and the tile's columns");
+constexpr int kUnswapThreads = 128;
+constexpr int kUnswapRows = 16;
+
+// Route codes, as the wrapper passes them.
+enum Route : int { kRegisterRoute = 0, kBlockedRoute = 1, kStreamedRoute = 2, kGlobalRoute = 3 };
 
 // Pivot ranking key: |x|, with NaN ranked as +inf so that a NaN column is
 // picked and reported rather than skipped.
@@ -650,14 +719,13 @@ __device__ inline T pick(const T (&v)[kPanel], int t) {
 }
 
 // Blocked route (see the design note), one block of kBlockedThreads threads
-// per matrix; thread tid holds panel rows tid + q kBlockedThreads (q <
-// kRows) in registers during the panel sweep.  Pass k0 sweeps the panel of
-// columns [k0, k0 + kPanel) and applies it to every other column tile; the
-// first pass reads the input, the later ones work in place on the output.
-// With one panel row per thread two blocks share an SM, so the register
-// budget is held to 128.
-template <typename T, int kRows>
-__global__ void __launch_bounds__(kBlockedThreads, kRows == 1 ? 2 : 1)
+// per matrix; thread tid holds panel row tid in registers during the panel
+// sweep (n <= kBlockedThreads).  Pass k0 sweeps the panel of columns
+// [k0, k0 + kPanel) and applies it to every other column tile; the first
+// pass reads the input, the later ones work in place on the output.  Two
+// blocks share an SM, so the register budget is held to 128.
+template <typename T>
+__global__ void __launch_bounds__(kBlockedThreads, 2)
 gj_inverse_blocked_kernel(const T* a, T* out, int* info, int n) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
 
@@ -690,24 +758,16 @@ gj_inverse_blocked_kernel(const T* a, T* out, int* info, int n) {
     // 1. Panel: bk steps of the pivoted sweep on the n x bk panel alone,
     //    each behind two barriers: the pivot's partial maxima, then the
     //    pivot row and the old row k.
-    T v[kRows][kPanel];
+    T v[kPanel];
 #pragma unroll
-    for (int q = 0; q < kRows; ++q) {
-      const int i = tid + q * kBlockedThreads;
-#pragma unroll
-      for (int j = 0; j < kPanel; ++j) {
-        v[q][j] = i < n && j < bk ? panel[i * kPanelStride + j] : T(0);
-      }
+    for (int j = 0; j < kPanel; ++j) {
+      v[j] = tid < n && j < bk ? panel[tid * kPanelStride + j] : T(0);
     }
     for (int t = 0; t < bk; ++t) {
       const int k = k0 + t;
       T key = T(-1);
       int idx = n;
-#pragma unroll
-      for (int q = 0; q < kRows; ++q) {
-        const int i = tid + q * kBlockedThreads;
-        if (i >= k && i < n) take_max(key, idx, pivot_key(pick(v[q], t)), i);
-      }
+      if (tid >= k && tid < n) take_max(key, idx, pivot_key(pick(v, t)), tid);
       for (int off = kWarp / 2; off > 0; off /= 2) {
         const T other_key = __shfl_down_sync(0xffffffffu, key, off);
         const int other_idx = __shfl_down_sync(0xffffffffu, idx, off);
@@ -727,18 +787,14 @@ gj_inverse_blocked_kernel(const T* a, T* out, int* info, int n) {
         return;
       }
       const int p = idx;
+      if (tid == p) {
+        const T inv_pivot = T(1) / pick(v, t);
 #pragma unroll
-      for (int q = 0; q < kRows; ++q) {
-        const int i = tid + q * kBlockedThreads;
-        if (i == p) {
-          const T inv_pivot = T(1) / pick(v[q], t);
+        for (int j = 0; j < kPanel; ++j) prow[j] = j == t ? inv_pivot : v[j] * inv_pivot;
+      }
+      if (tid == k) {
 #pragma unroll
-          for (int j = 0; j < kPanel; ++j) prow[j] = j == t ? inv_pivot : v[q][j] * inv_pivot;
-        }
-        if (i == k) {
-#pragma unroll
-          for (int j = 0; j < kPanel; ++j) oldk[j] = v[q][j];
-        }
+        for (int j = 0; j < kPanel; ++j) oldk[j] = v[j];
       }
       if (tid == 0) {
         perm[k] = p;
@@ -747,34 +803,24 @@ gj_inverse_blocked_kernel(const T* a, T* out, int* info, int n) {
         src[p] = s_k;
       }
       __syncthreads();
+      if (tid == k) {
 #pragma unroll
-      for (int q = 0; q < kRows; ++q) {
-        const int i = tid + q * kBlockedThreads;
-        if (i == k) {
+        for (int j = 0; j < kPanel; ++j) v[j] = prow[j];
+      } else if (tid < n) {
+        if (tid == p) {  // row p takes the old row k
 #pragma unroll
-          for (int j = 0; j < kPanel; ++j) v[q][j] = prow[j];
-        } else if (i < n) {
-          if (i == p) {  // row p takes the old row k
-#pragma unroll
-            for (int j = 0; j < kPanel; ++j) v[q][j] = oldk[j];
-          }
-          const T c = pick(v[q], t);
-#pragma unroll
-          for (int j = 0; j < kPanel; ++j) {
-            v[q][j] = fused_mul_add(-c, prow[j], j == t ? T(0) : v[q][j]);
-          }
+          for (int j = 0; j < kPanel; ++j) v[j] = oldk[j];
         }
+        const T c = pick(v, t);
+#pragma unroll
+        for (int j = 0; j < kPanel; ++j) v[j] = fused_mul_add(-c, prow[j], j == t ? T(0) : v[j]);
       }
     }
     // The panel now holds M, the inverse's columns [k0, k0 + bk).
+    if (tid < n) {
 #pragma unroll
-    for (int q = 0; q < kRows; ++q) {
-      const int i = tid + q * kBlockedThreads;
-      if (i < n) {
-#pragma unroll
-        for (int j = 0; j < kPanel; ++j) {
-          if (j < bk) panel[i * kPanelStride + j] = v[q][j];
-        }
+      for (int j = 0; j < kPanel; ++j) {
+        if (j < bk) panel[tid * kPanelStride + j] = v[j];
       }
     }
     __syncthreads();
@@ -875,6 +921,445 @@ gj_inverse_blocked_kernel(const T* a, T* out, int* info, int n) {
   if (tid == 0) info[e] = 0;
 }
 
+// Streamed route (see the design note).  Panel launch: one block per
+// matrix sweeps columns [k0, k0 + kB) of w (the input for the first panel,
+// the output after) in registers, thread tid holding panel rows tid + q
+// kBlockedThreads, and writes them to the output; gather[e] takes the
+// panel's row gather src and sigma[e] the running row permutation.
+template <typename T, int kRows, int kB>
+__global__ void __launch_bounds__(kBlockedThreads, 1)
+gj_streamed_panel_kernel(const T* w, T* out, int* info, int* gather, int* sigma, int n, int k0) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ T prow[kB];  // the pivot row, raw and rotated
+  __shared__ T oldk[kB];  // row k before the swap
+  __shared__ T red_key[kBlockedWarps];
+  __shared__ int red_idx[kBlockedWarps];
+  int* src = reinterpret_cast<int*>(smem_raw);  // src[i]: the row as read that lands in row i
+
+  const long long e = blockIdx.x;
+  if (info[e] != 0) return;  // an earlier panel of this matrix failed
+  const long long nn = static_cast<long long>(n) * n;
+  const T* we = w + e * nn;
+  T* oe = out + e * nn;
+  const int tid = threadIdx.x;
+  const int lane = tid % kWarp;
+  const int warp = tid / kWarp;
+  const int bk = min(kB, n - k0);
+
+  for (int i = tid; i < n; i += kBlockedThreads) src[i] = i;
+  T v[kRows][kB];
+#pragma unroll
+  for (int q = 0; q < kRows; ++q) {
+    const int i = tid + q * kBlockedThreads;
+#pragma unroll
+    for (int j = 0; j < kB; ++j) {
+      v[q][j] = i < n && j < bk ? we[static_cast<long long>(i) * n + k0 + j] : T(0);
+    }
+  }
+  __syncthreads();
+
+  // bk pivot steps, each behind two barriers, as in the blocked route, but
+  // with column k0 + t at v[q][0] in step t: each step rotates a row left
+  // by one place, the eliminated column's new entry going to the last
+  // place, so that no register is indexed by t (no select tree).  The
+  // pivot row is broadcast raw and every thread scales by the pivot itself.
+  for (int t = 0; t < bk; ++t) {
+    const int k = k0 + t;
+    T key = T(-1);
+    int idx = n;
+#pragma unroll
+    for (int q = 0; q < kRows; ++q) {
+      const int i = tid + q * kBlockedThreads;
+      if (i >= k && i < n) take_max(key, idx, pivot_key(v[q][0]), i);
+    }
+    for (int off = kWarp / 2; off > 0; off /= 2) {
+      const T other_key = __shfl_down_sync(0xffffffffu, key, off);
+      const int other_idx = __shfl_down_sync(0xffffffffu, idx, off);
+      take_max(key, idx, other_key, other_idx);
+    }
+    if (lane == 0) {
+      red_key[warp] = key;
+      red_idx[warp] = idx;
+    }
+    __syncthreads();
+    key = red_key[0];
+    idx = red_idx[0];
+#pragma unroll
+    for (int r = 1; r < kBlockedWarps; ++r) take_max(key, idx, red_key[r], red_idx[r]);
+    if (!(key > T(0) && key < T(INFINITY))) {  // the same in every thread
+      if (tid == 0) info[e] = k + 1;
+      return;
+    }
+    const int p = idx;
+#pragma unroll
+    for (int q = 0; q < kRows; ++q) {
+      const int i = tid + q * kBlockedThreads;
+      if (i == p) {
+#pragma unroll
+        for (int j = 0; j < kB; ++j) prow[j] = v[q][j];
+      }
+      if (i == k) {
+#pragma unroll
+        for (int j = 0; j < kB; ++j) oldk[j] = v[q][j];
+      }
+    }
+    if (tid == 0) {
+      const int s_k = src[k];
+      src[k] = src[p];
+      src[p] = s_k;
+    }
+    __syncthreads();
+    const T inv_pivot = T(1) / prow[0];
+#pragma unroll
+    for (int q = 0; q < kRows; ++q) {
+      const int i = tid + q * kBlockedThreads;
+      if (i == k) {
+#pragma unroll
+        for (int j = 0; j + 1 < kB; ++j) v[q][j] = inv_pivot * prow[j + 1];
+        v[q][kB - 1] = inv_pivot;
+      } else if (i < n) {
+        if (i == p) {  // row p takes the old row k
+#pragma unroll
+          for (int j = 0; j < kB; ++j) v[q][j] = oldk[j];
+        }
+        const T f = v[q][0] * inv_pivot;
+#pragma unroll
+        for (int j = 0; j + 1 < kB; ++j) v[q][j] = fused_mul_add(-f, prow[j + 1], v[q][j + 1]);
+        v[q][kB - 1] = -f;
+      }
+    }
+  }
+  // A ragged last panel rotates on, without arithmetic, until each column
+  // is back in its place (the padding columns stay zero).
+  for (int t = bk; t < kB; ++t) {
+#pragma unroll
+    for (int q = 0; q < kRows; ++q) {
+      const T first = v[q][0];
+#pragma unroll
+      for (int j = 0; j + 1 < kB; ++j) v[q][j] = v[q][j + 1];
+      v[q][kB - 1] = first;
+    }
+  }
+
+  // The panel is M, the inverse's columns [k0, k0 + bk).
+#pragma unroll
+  for (int q = 0; q < kRows; ++q) {
+    const int i = tid + q * kBlockedThreads;
+    if (i < n) {
+#pragma unroll
+      for (int j = 0; j < kB; ++j) {
+        if (j < bk) oe[static_cast<long long>(i) * n + k0 + j] = v[q][j];
+      }
+    }
+  }
+  __syncthreads();
+  int* ge = gather + e * n;
+  int* se = sigma + e * n;
+  int moved[kRows];
+#pragma unroll
+  for (int q = 0; q < kRows; ++q) {
+    const int i = tid + q * kBlockedThreads;
+    if (i < n) {
+      ge[i] = src[i];
+      moved[q] = k0 == 0 ? src[i] : se[src[i]];
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int q = 0; q < kRows; ++q) {
+    const int i = tid + q * kBlockedThreads;
+    if (i < n) se[i] = moved[q];
+  }
+}
+
+// kBytes from global to shared memory with cp.async, or zeros where !ok.
+template <int kBytes>
+__device__ inline void copy_async_zfill(void* to_shared, const void* from_global, bool ok) {
+  const unsigned to = static_cast<unsigned>(__cvta_generic_to_shared(to_shared));
+  const int src_bytes = ok ? kBytes : 0;
+  if constexpr (kBytes == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(to), "l"(from_global),
+                 "r"(src_bytes)
+                 : "memory");
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;" ::"r"(to), "l"(from_global),
+                 "n"(kBytes), "r"(src_bytes)
+                 : "memory");
+  }
+}
+
+__device__ inline void copy_async_commit() { asm volatile("cp.async.commit_group;" ::: "memory"); }
+
+template <int kPending>
+__device__ inline void copy_async_wait_pending() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(kPending) : "memory");
+}
+
+// Stages `count` rows of a kB-wide strip into shared memory (row stride
+// kB + kStreamPad): row r takes columns [col0, col0 + cols) of row rows[r]
+// (row row0 + r where rows is null) of the n x n matrix m, and zeros past
+// `cols` and for r >= valid.  `vec`: 16-byte copies (n a multiple of 16
+// bytes, both matrices aligned).
+template <typename T, int kB>
+__device__ inline void stage_rows(T* to, const T* m, int n, int col0, int cols, const int* rows,
+                                  int row0, int count, int valid, bool vec) {
+  constexpr int kLd = kB + kStreamPad;
+  if (vec) {
+    constexpr int kVec = 16 / sizeof(T);
+    constexpr int kPer = kB / kVec;
+    for (int idx = threadIdx.x; idx < count * kPer; idx += blockDim.x) {
+      const int r = idx / kPer;
+      const int c = (idx - r * kPer) * kVec;
+      const bool ok = r < valid && c < cols;
+      const long long row = ok ? (rows ? rows[r] : row0 + r) : 0;
+      copy_async_zfill<16>(to + r * kLd + c, m + row * n + col0 + (ok ? c : 0), ok);
+    }
+  } else {
+    for (int idx = threadIdx.x; idx < count * kB; idx += blockDim.x) {
+      const int r = idx / kB;
+      const int c = idx - r * kB;
+      const bool ok = r < valid && c < cols;
+      const long long row = ok ? (rows ? rows[r] : row0 + r) : 0;
+      copy_async_zfill<sizeof(T)>(to + r * kLd + c, m + row * n + col0 + (ok ? c : 0), ok);
+    }
+  }
+}
+
+// D += A B for 16 x 8 outputs and four terms of the sum.  Lane (g, t),
+// g = lane / 4, t = lane % 4, holds A[g][t], A[g + 8][t], B[t][g] and
+// D[g][2t], D[g][2t + 1], D[g + 8][2t], D[g + 8][2t + 1] (as in mass_edge.cu).
+__device__ inline void mma_pair(double (&d)[4], double a0, double a1, double b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k4.row.col.f64.f64.f64.f64 {%0, %1, %2, %3}, {%4, %5}, {%6}, "
+      "{%0, %1, %2, %3};"
+      : "+d"(d[0]), "+d"(d[1]), "+d"(d[2]), "+d"(d[3])
+      : "d"(a0), "d"(a1), "d"(b));
+}
+
+// One warp's part of a row chunk's rank-kB product: rows r and r + 8 of
+// the chunk (r = 16 (warp % kRowPairs) + g), columns c0 + 8 j + 2t and the
+// next (j < kNcw), acc += M[rows, :] P[:, columns], M from the chunk's rows
+// `ms`, P the staged pivot rows `pr`.
+template <int kB, int kNcw>
+__device__ inline void rank_update(double (&acc)[kNcw][4], const double* ms, const double* pr,
+                                   int r, int c0, int g, int t) {
+  constexpr int kLd = kB + kStreamPad;
+#pragma unroll
+  for (int s = 0; s < kB; s += 4) {
+    const double a0 = ms[r * kLd + s + t];
+    const double a1 = ms[(r + 8) * kLd + s + t];
+#pragma unroll
+    for (int j = 0; j < kNcw; ++j) mma_pair(acc[j], a0, a1, pr[(s + t) * kLd + c0 + 8 * j + g]);
+  }
+}
+
+// The same ownership in f32, with FMAs.
+template <int kB, int kNcw>
+__device__ inline void rank_update(float (&acc)[kNcw][4], const float* ms, const float* pr,
+                                   int r, int c0, int g, int t) {
+  constexpr int kLd = kB + kStreamPad;
+#pragma unroll 8
+  for (int s = 0; s < kB; ++s) {
+    const float a0 = ms[r * kLd + s];
+    const float a1 = ms[(r + 8) * kLd + s];
+#pragma unroll
+    for (int j = 0; j < kNcw; ++j) {
+      const float2 b = *reinterpret_cast<const float2*>(pr + s * kLd + c0 + 8 * j + 2 * t);
+      acc[j][0] = fmaf(a0, b.x, acc[j][0]);
+      acc[j][1] = fmaf(a0, b.y, acc[j][1]);
+      acc[j][2] = fmaf(a1, b.x, acc[j][2]);
+      acc[j][3] = fmaf(a1, b.y, acc[j][3]);
+    }
+  }
+}
+
+__device__ inline void store_pair(double* to, double v0, double v1) {
+  *reinterpret_cast<double2*>(to) = make_double2(v0, v1);
+}
+__device__ inline void store_pair(float* to, float v0, float v1) {
+  *reinterpret_cast<float2*>(to) = make_float2(v0, v1);
+}
+
+template <typename T>
+size_t streamed_update_bytes(int kb, int n) {
+  const size_t ld = kb + kStreamPad;
+  return (2 * kb * ld + kStreamStages * 2 * kStreamRows * ld) * sizeof(T) + n * sizeof(int);
+}
+
+// Update launch: one block per matrix and column tile other than the
+// panel's, C'[i] = (i in K ? 0 : C[src[i]]) + sum_t M[i,t] C[src[k0 + t]],
+// C read from w, M from the output's panel columns.  Each warp owns 16
+// rows and kB / kColGroups columns of every chunk of kStreamRows rows.
+template <typename T, int kB>
+__global__ void __launch_bounds__(kStreamThreads)
+gj_streamed_update_kernel(const T* w, T* out, const int* info, const int* gather, int n, int k0,
+                          int vec) {
+  constexpr int kLd = kB + kStreamPad;
+  constexpr int kChunk = kStreamRows * kLd;
+  constexpr int kNcw = kB / 8 / kColGroups;  // column blocks of 8 a warp
+  static_assert(kNcw >= 1, "a warp owns whole column blocks");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* pr = reinterpret_cast<T*>(smem_raw);  // the pivot rows C[src[K]]
+  T* qr = pr + kB * kLd;                    // the rows C[K] as read
+  T* ring = qr + kB * kLd;                  // per stage: a chunk's M rows, then its C rows
+  int* src = reinterpret_cast<int*>(ring + kStreamStages * 2 * kChunk);
+
+  const int n_tiles = (n + kB - 1) / kB;
+  const long long e = blockIdx.x / (n_tiles - 1);
+  const int jt = blockIdx.x % (n_tiles - 1);
+  if (info[e] != 0) return;  // this matrix's panel failed
+  const int j0 = (jt < k0 / kB ? jt : jt + 1) * kB;
+  const int wj = min(kB, n - j0);
+  const int bk = min(kB, n - k0);
+  const long long nn = static_cast<long long>(n) * n;
+  const T* we = w + e * nn;
+  T* oe = out + e * nn;
+  const int tid = threadIdx.x;
+  const int lane = tid % kWarp;
+  const int warp = tid / kWarp;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int r_lo = warp % kRowPairs * 16 + g;
+  const int c0 = warp / kRowPairs * kNcw * 8;
+  const bool pairs = (n & 1) == 0;
+
+  for (int i = tid; i < n; i += kStreamThreads) src[i] = gather[e * n + i];
+  __syncthreads();
+  // Every row this block writes is read before its first store: the pivot
+  // rows and the rows K here, the others in their own chunk.
+  stage_rows<T, kB>(pr, we, n, j0, wj, src + k0, 0, kB, bk, vec);
+  stage_rows<T, kB>(qr, we, n, j0, wj, nullptr, k0, kB, bk, vec);
+  const int n_chunks = (n + kStreamRows - 1) / kStreamRows;
+  auto request = [&](int c) {
+    if (c < n_chunks) {
+      T* stage = ring + (c % kStreamStages) * 2 * kChunk;
+      const int i0 = c * kStreamRows;
+      stage_rows<T, kB>(stage, oe, n, k0, bk, nullptr, i0, kStreamRows, n - i0, vec);
+      stage_rows<T, kB>(stage + kChunk, we, n, j0, wj, nullptr, i0, kStreamRows, n - i0, vec);
+    }
+    copy_async_commit();
+  };
+  for (int c = 0; c < kStreamStages - 1; ++c) request(c);
+
+  for (int c = 0; c < n_chunks; ++c) {
+    // Chunk c has landed, and every warp is done with the stage that the
+    // next request overwrites.
+    copy_async_wait_pending<kStreamStages - 2>();
+    __syncthreads();
+    request(c + kStreamStages - 1);
+    const T* ms = ring + (c % kStreamStages) * 2 * kChunk;
+    const T* cs = ms + kChunk;
+    const int i0 = c * kStreamRows;
+
+    T acc[kNcw][4];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = r_lo + 8 * h;
+      const int i = i0 + r;
+      const T* kept = nullptr;  // C[src[i]], or null for the rows K
+      if (i < n && (i < k0 || i >= k0 + bk)) {
+        const int s = src[i];
+        kept = s == i ? cs + r * kLd : qr + (s - k0) * kLd;
+      }
+#pragma unroll
+      for (int j = 0; j < kNcw; ++j) {
+        const int col = c0 + 8 * j + 2 * t;
+        acc[j][2 * h] = kept ? kept[col] : T(0);
+        acc[j][2 * h + 1] = kept ? kept[col + 1] : T(0);
+      }
+    }
+    rank_update<kB, kNcw>(acc, ms, pr, r_lo, c0, g, t);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int i = i0 + r_lo + 8 * h;
+      if (i >= n) continue;
+      T* row = oe + static_cast<long long>(i) * n + j0;
+#pragma unroll
+      for (int j = 0; j < kNcw; ++j) {
+        const int col = c0 + 8 * j + 2 * t;
+        if (pairs) {
+          if (col < wj) store_pair(row + col, acc[j][2 * h], acc[j][2 * h + 1]);
+        } else {
+          if (col < wj) row[col] = acc[j][2 * h];
+          if (col + 1 < wj) row[col + 1] = acc[j][2 * h + 1];
+        }
+      }
+    }
+  }
+  copy_async_wait_pending<0>();
+}
+
+template <typename T>
+size_t streamed_unswap_bytes(int n) {
+  return (static_cast<size_t>(n) * sizeof(int) + 15) / 16 * 16 +
+         static_cast<size_t>(kUnswapThreads / kWarp) * n * sizeof(T);
+}
+
+// Column swaps of the streamed route: kUnswapRows rows of one matrix a
+// block, one row at a time a warp, through shared memory; column c of the
+// result is column j of the swept matrix where sigma[j] = c.
+template <typename T>
+__global__ void __launch_bounds__(kUnswapThreads)
+gj_streamed_unswap_kernel(T* out, const int* info, const int* sigma, int n) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int chunks = (n + kUnswapRows - 1) / kUnswapRows;
+  const long long e = blockIdx.x / chunks;
+  const int i0 = (blockIdx.x % chunks) * kUnswapRows;
+  if (info[e] != 0) return;  // the matrix is singular
+  int* col = reinterpret_cast<int*>(smem_raw);
+  const int lane = threadIdx.x % kWarp;
+  const int warp = threadIdx.x / kWarp;
+  T* buf = reinterpret_cast<T*>(smem_raw + (static_cast<size_t>(n) * sizeof(int) + 15) / 16 * 16) +
+           static_cast<size_t>(warp) * n;
+  for (int j = threadIdx.x; j < n; j += kUnswapThreads) col[sigma[e * n + j]] = j;
+  __syncthreads();
+  const int i1 = min(i0 + kUnswapRows, n);
+  for (int i = i0 + warp; i < i1; i += kUnswapThreads / kWarp) {
+    T* row = out + e * n * n + static_cast<long long>(i) * n;
+    for (int j = lane; j < n; j += kWarp) buf[j] = row[j];
+    __syncwarp();
+    for (int c = lane; c < n; c += kWarp) row[c] = buf[col[c]];
+    __syncwarp();
+  }
+}
+
+// The whole streamed route for one call: ceil(n / kB) panel and update
+// launches, then the column swaps, on `stream`.  scratch holds gather
+// [n_elem][n], then sigma [n_elem][n].
+template <typename T, int kRows, int kB>
+int launch_streamed(const T* a, T* out, int* info, int* scratch, int n_elem, int n,
+                    cudaStream_t stream) {
+  const size_t update_smem = streamed_update_bytes<T>(kB, n);
+  cudaError_t err = cudaFuncSetAttribute(gj_streamed_update_kernel<T, kB>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(update_smem));
+  if (err == cudaSuccess) err = cudaMemsetAsync(info, 0, n_elem * sizeof(int), stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int* gather = scratch;
+  int* sigma = scratch + static_cast<long long>(n_elem) * n;
+  constexpr int kVec = 16 / sizeof(T);
+  const int vec = n % kVec == 0 && reinterpret_cast<uintptr_t>(a) % 16 == 0 &&
+                  reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  const int n_tiles = (n + kB - 1) / kB;
+  for (int k0 = 0; k0 < n; k0 += kB) {
+    const T* w = k0 == 0 ? a : out;
+    gj_streamed_panel_kernel<T, kRows, kB>
+        <<<n_elem, kBlockedThreads, n * sizeof(int), stream>>>(w, out, info, gather, sigma, n, k0);
+    err = cudaGetLastError();
+    if (err == cudaSuccess && n_tiles > 1) {
+      const long long blocks = static_cast<long long>(n_elem) * (n_tiles - 1);
+      gj_streamed_update_kernel<T, kB><<<static_cast<unsigned>(blocks), kStreamThreads,
+                                         update_smem, stream>>>(w, out, info, gather, n, k0, vec);
+      err = cudaGetLastError();
+    }
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const long long blocks = static_cast<long long>(n_elem) * ((n + kUnswapRows - 1) / kUnswapRows);
+  gj_streamed_unswap_kernel<T><<<static_cast<unsigned>(blocks), kUnswapThreads,
+                                 streamed_unswap_bytes<T>(n), stream>>>(out, info, sigma, n);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // The current device and the dynamic shared memory a block may opt in to.
 int smem_optin(int* device, int* bytes) {
   cudaError_t err = cudaGetDevice(device);
@@ -882,28 +1367,6 @@ int smem_optin(int* device, int* bytes) {
     err = cudaDeviceGetAttribute(bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, *device);
   }
   return static_cast<int>(err);
-}
-
-// Above n = 64 the blocked route: a route that held the whole matrix in
-// shared memory was slower at every n timed, 65 to 161 in f64 and 65 to 208
-// in f32 (tools/gj_inverse_ablation.py --baseline).
-template <typename T>
-Route route_for(int n, int optin) {
-  const size_t limit = static_cast<size_t>(optin);
-  if (n <= kRegisterMaxN && register_route_bytes<T>(n) <= limit) return kRegisterRoute;
-  if (n <= kMaxBlockedRows * kBlockedThreads && blocked_route_bytes<T>(n) <= limit) {
-    return kBlockedRoute;
-  }
-  return kGlobalRoute;
-}
-
-template <typename T>
-int route_query(int n) {
-  int device = 0;
-  int optin = 0;
-  const int err = smem_optin(&device, &optin);
-  if (err != 0) return -err;
-  return route_for<T>(n, optin);
 }
 
 template <typename T>
@@ -980,51 +1443,62 @@ int launch_register_for(const T* a, T* out, int* info, int n_elem, int n, int de
   }
 }
 
+// One call on the route the wrapper chose, after checking that the route
+// takes n on this device; cudaErrorInvalidValue where it does not.
 template <typename T>
-int launch(const void* a, void* out, int* info, int n_elem, int n, void* stream) {
+int launch(const void* a, void* out, int* info, int* scratch, int n_elem, int n, int route,
+           int panel, void* stream) {
   if (n_elem <= 0 || n <= 0) return 0;
   int device = 0;
   int optin = 0;
   const int err = smem_optin(&device, &optin);
   if (err != 0) return err;
+  const size_t limit = static_cast<size_t>(optin);
   const T* a_t = static_cast<const T*>(a);
   T* out_t = static_cast<T*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int threads = block_threads(n);
-  const dim3 unblocked(kWarp, threads / kWarp);
-  switch (route_for<T>(n, optin)) {
+  const int invalid = static_cast<int>(cudaErrorInvalidValue);
+  switch (route) {
     case kRegisterRoute:
+      if (n > kRegisterMaxN || register_route_bytes<T>(n) > limit) return invalid;
       return launch_register_for<T>(a_t, out_t, info, n_elem, n, device, s);
     case kBlockedRoute:
-      return launch_kernel(n <= kBlockedThreads ? gj_inverse_blocked_kernel<T, 1>
-                                                : gj_inverse_blocked_kernel<T, kMaxBlockedRows>,
-                           n_elem, kBlockedThreads, blocked_route_bytes<T>(n), s, a_t, out_t,
-                           info, n);
+      if (n > kBlockedThreads || blocked_route_bytes<T>(n) > limit) return invalid;
+      return launch_kernel(gj_inverse_blocked_kernel<T>, n_elem, kBlockedThreads,
+                           blocked_route_bytes<T>(n), s, a_t, out_t, info, n);
+    case kStreamedRoute:
+      // Panel rows a thread holds: 32 entries in two rows, or 16 in four.
+      if (scratch == nullptr || streamed_update_bytes<T>(panel, n) > limit) return invalid;
+      if (panel == kPanel && n <= 2 * kBlockedThreads) {
+        return launch_streamed<T, 2, kPanel>(a_t, out_t, info, scratch, n_elem, n, s);
+      }
+      if (panel == kPanel / 2 && n <= kStreamedMaxN) {
+        return launch_streamed<T, 4, kPanel / 2>(a_t, out_t, info, scratch, n_elem, n, s);
+      }
+      return invalid;
+    case kGlobalRoute: {
+      if (scratch_bytes<T>(n) > limit) return invalid;
+      const dim3 unblocked(kWarp, block_threads(n) / kWarp);
+      return launch_kernel(gj_inverse_global_kernel<T>, n_elem, unblocked, scratch_bytes<T>(n), s,
+                           a_t, out_t, info, n);
+    }
     default:
-      break;
+      return invalid;
   }
-  const size_t scratch = scratch_bytes<T>(n);
-  if (scratch > static_cast<size_t>(optin)) {
-    return static_cast<int>(cudaErrorInvalidConfiguration);
-  }
-  return launch_kernel(gj_inverse_global_kernel<T>, n_elem, unblocked, scratch, s, a_t, out_t,
-                       info, n);
 }
 
 }  // namespace
 
-extern "C" int mfv2d_gj_inverse_f64(const void* a, void* out, int* info, int n_elem, int n,
-                                    void* stream) {
-  return launch<double>(a, out, info, n_elem, n, stream);
+// The inverses of n_elem n x n matrices a into out, on `stream`; info[e] is
+// 0 or the first zero or non-finite pivot k+1 of matrix e.  route: 0
+// register, 1 blocked, 2 streamed (panel: 32 or 16 columns; scratch: 2
+// n_elem n ints), 3 global.  Returns a CUDA error code.
+extern "C" int mfv2d_gj_inverse_f64(const void* a, void* out, int* info, int* scratch,
+                                    int n_elem, int n, int route, int panel, void* stream) {
+  return launch<double>(a, out, info, scratch, n_elem, n, route, panel, stream);
 }
 
-extern "C" int mfv2d_gj_inverse_f32(const void* a, void* out, int* info, int n_elem, int n,
-                                    void* stream) {
-  return launch<float>(a, out, info, n_elem, n, stream);
+extern "C" int mfv2d_gj_inverse_f32(const void* a, void* out, int* info, int* scratch,
+                                    int n_elem, int n, int route, int panel, void* stream) {
+  return launch<float>(a, out, info, scratch, n_elem, n, route, panel, stream);
 }
-
-// The route an n x n matrix takes on the current device: 0 register, 1
-// blocked, 2 global; minus a CUDA error code.
-extern "C" int mfv2d_gj_inverse_route_f64(int n) { return route_query<double>(n); }
-
-extern "C" int mfv2d_gj_inverse_route_f32(int n) { return route_query<float>(n); }

@@ -32,7 +32,53 @@ from mfv2d_torch.ops.precision import gj_inverse_plain
 launches = 0
 
 _SUFFIX = {torch.float64: "f64", torch.float32: "f32"}
-_ROUTES = ("register", "blocked", "global")
+# Route names in the order of their codes in csrc/gj_inverse.cu.
+ROUTES = ("register", "blocked", "streamed", "global")
+REGISTER_MAX_N = 64
+# The blocked route's last n: the largest at which two of its f64 blocks
+# fit on one SM (`blocked_route_bytes` in the .cu file).
+BLOCKED_MAX_N = 218
+# The streamed route holds two rows of a 32-column panel or four of a
+# 16-column one a thread (256 threads).
+STREAMED_MAX_N = 1024
+PANEL = 32
+
+
+def route(n: int, dtype: torch.dtype) -> str:
+    """The kernel route an ``n x n`` inverse in ``dtype`` takes.
+
+    - ``"register"``, n <= 64: one matrix row per thread in registers, a
+      group of 32 or 64 threads per matrix.
+    - ``"blocked"``, to n = 218, while two of its f64 blocks fit on one SM:
+      one block per matrix, panels of 32 columns and rank-32 tile updates.
+    - ``"streamed"``, to n = 1024: the same panel sweep in one launch and
+      the tile updates in another, for each panel, with the tiles streamed
+      through shared memory and the update on the FP64 tensor cores; panels
+      of :func:`panel_width` columns.
+    - ``"global"``, above (Navier-Stokes from p = 16, n = 1089): in place
+      in global memory, one step at a time.
+
+    The blocked route beats the streamed one at n=208 (E=1000 and 4096,
+    f64) and loses from n=224 (f64, E=1000), where one of its blocks fills
+    an SM; ``tools/gj_inverse_ablation.py`` times both at the boundary.
+    f32 keeps the f64 boundary, though the streamed route is a few percent
+    faster there in f32 too.
+    """
+    if n < 1:
+        raise ValueError(f"gj_inverse: no route for n={n}.")
+    if n <= REGISTER_MAX_N:
+        return "register"
+    if n <= BLOCKED_MAX_N:
+        return "blocked"
+    if n <= STREAMED_MAX_N:
+        return "streamed"
+    return "global"
+
+
+def panel_width(n: int) -> int:
+    """Columns of a streamed panel: 32 while a thread's panel rows (n / 256
+    of them) hold at most 64 entries, 16 above n = 512."""
+    return PANEL if n <= 512 else PANEL // 2
 
 
 @functools.cache
@@ -41,24 +87,9 @@ def library() -> ctypes.CDLL:
     lib = _build.load("gj_inverse")
     for suffix in _SUFFIX.values():
         fn = getattr(lib, f"mfv2d_gj_inverse_{suffix}")
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        query = getattr(lib, f"mfv2d_gj_inverse_route_{suffix}")
-        query.argtypes = [ctypes.c_int]
-        query.restype = ctypes.c_int
     return lib
-
-
-def route(n: int, dtype: torch.dtype) -> str:
-    """The kernel route an ``n x n`` inverse takes on the current CUDA device:
-    ``"register"`` (n <= 64: one matrix row per thread in registers, a
-    group of 32 or 64 threads per matrix), ``"blocked"`` (panels of 32
-    columns and rank-32 tile updates) or ``"global"`` (in place in global
-    memory, above the blocked route's sizes)."""
-    rc = getattr(library(), f"mfv2d_gj_inverse_route_{_SUFFIX[dtype]}")(n)
-    if rc < 0:
-        raise RuntimeError(f"gj_inverse route query failed with CUDA error {-rc}.")
-    return _ROUTES[rc]
 
 
 def _check(a: torch.Tensor) -> None:
@@ -84,7 +115,12 @@ def gj_inverse(a: torch.Tensor) -> torch.Tensor:
     out = torch.empty_like(a)
     if n_elem == 0 or n == 0:
         return out
+    name = route(n, a.dtype)
     info = torch.empty(n_elem, dtype=torch.int32, device=a.device)
+    # The streamed route's row gather and row permutation, per matrix.
+    scratch = None
+    if name == "streamed":
+        scratch = torch.empty((2, n_elem, n), dtype=torch.int32, device=a.device)
     fn = getattr(library(), f"mfv2d_gj_inverse_{_SUFFIX[a.dtype]}")
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
@@ -92,8 +128,11 @@ def gj_inverse(a: torch.Tensor) -> torch.Tensor:
             ctypes.c_void_p(a.data_ptr()),
             ctypes.c_void_p(out.data_ptr()),
             ctypes.c_void_p(info.data_ptr()),
+            ctypes.c_void_p(None if scratch is None else scratch.data_ptr()),
             n_elem,
             n,
+            ROUTES.index(name),
+            panel_width(n),
             ctypes.c_void_p(stream),
         )
     if rc != 0:

@@ -6,9 +6,12 @@ plain version on the card (``cuda``-marked test, and chip_smoke.py).  Here
 the plain version is held against ``gj_inverse_pallas`` in interpret mode,
 the refinement probe against the JAX one, and the mass inverses of the
 element batches against the JAX package's.  Step-by-step mirrors of the
-kernel's blocked route (:func:`blocked_gj_mirror`) and register route
-(:func:`implicit_gj_mirror`) hold their algebra against the plain version
-and the Pallas kernel.
+kernel's blocked and streamed routes (:func:`blocked_gj_mirror`) and
+register route (:func:`implicit_gj_mirror`) hold their algebra against the
+plain version and the Pallas kernel (the streamed route's at n = 460 and
+520, and on the Navier-Stokes p=10 blocks against the JAX package's blocks
+and f64 inverse), and the route rule (``kernel.route``,
+``kernel.panel_width``) is checked for every n to 1,100.
 """
 
 import math
@@ -62,7 +65,8 @@ def saddle_mix(n, seed):
 
 
 def blocked_gj_mirror(a: torch.Tensor, b: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """The blocked route of ``csrc/gj_inverse.cu``, step by step, batched.
+    """The blocked and streamed routes of ``csrc/gj_inverse.cu``, step by
+    step, batched.
 
     Panels of ``b`` columns are swept with partial pivoting (the largest
     |W[i,k]| over rows i >= k, ties to the smaller row, NaN as +inf); every
@@ -71,6 +75,9 @@ def blocked_gj_mirror(a: torch.Tensor, b: int) -> tuple[torch.Tensor, torch.Tens
     are undone as column swaps at the end.  With ``b >= n`` there are no
     tiles and this is the unblocked sweep of the global route.  Returns
     the inverses and ``info``: 0, or each matrix's first failing pivot k+1.
+
+    The streamed route reads a row i outside the panel's rows K only from
+    its own row or from a row of K; the gather is checked for that here.
     """
     e, n, _ = a.shape
     batch = torch.arange(e)[:, None]
@@ -102,6 +109,10 @@ def blocked_gj_mirror(a: torch.Tensor, b: int) -> tuple[torch.Tensor, torch.Tens
             m = m - col[:, :, None] * row[:, None, :]
             m[:, k, :] = row
         w[:, :, k0:k1] = m
+        outside = torch.ones(n, dtype=torch.bool)
+        outside[k0:k1] = False
+        rows = torch.arange(n)
+        assert torch.all((src == rows) | ((src >= k0) & (src < k1)) | ~outside)
         for j0 in range(0, n, b):
             if j0 != k0:
                 tile = w[:, :, j0 : j0 + b][batch, src]
@@ -228,6 +239,118 @@ def test_blocked_mirror_reports_the_unblocked_failing_pivot(b):
     assert info.tolist() == [0] * 5 + [18] + [0] * 2
 
 
+@pytest.mark.parametrize(
+    "n, b", [(219, 32), (440, 32), (441, 32), (460, 32), (460, 16), (520, 16)]
+)
+def test_streamed_mirror_matches_plain(n, b):
+    """The streamed route's sizes: its first n in f64 (219), the first
+    above the blocked route's old cap (440), the phase-10 blocks' n (441)
+    and n=460, at the route's panel width and at the narrower width it
+    takes above n=512."""
+    assert b in (kernel.panel_width(n), kernel.PANEL // 2)
+    a = torch.tensor(saddle_mix(n, seed=n))
+    assert torch.all(a[:2, : n // 3, : n // 3] == 0.0)
+    inv, info = blocked_gj_mirror(a, b)
+    assert torch.all(info == 0)
+    assert rel(inv, tprec.gj_inverse_plain(a).numpy()) <= 1e-10
+
+
+def navier_stokes_p10_blocks() -> torch.Tensor:
+    """The element blocks of Navier-Stokes Re=10 on a 4x4 mesh at p=10
+    (n = 121 + 220 + 100 = 441), assembled by the port on the CPU."""
+    import mfv2d_torch as mf
+    from mfv2d_torch.compiler import CompiledSystem
+    from mfv2d_torch.models import flow
+    from mfv2d_torch.solver.discretization import discretize_mesh
+    from mfv2d_torch.solver.solve import SystemEvaluator
+
+    system = flow.navier_stokes(10.0).system
+    compiled = CompiledSystem(system)
+    mesh = mf.examples.unit_square_mesh(4, 4, 10)
+    disc = discretize_mesh(mesh, system.unknown_forms, TFemCache(3), device="cpu")
+    evaluator = SystemEvaluator(disc.form_spec, compiled, disc)
+    return torch.as_tensor(evaluator.element_matrices(compiled.lhs_blocks)[0])
+
+
+def navier_stokes_p10_blocks_jax() -> np.ndarray:
+    """The same blocks, assembled by the JAX package."""
+    import mfv2d_tpu as jmf
+    from mfv2d_tpu.compiler import CompiledSystem
+    from mfv2d_tpu.models import flow
+    from mfv2d_tpu.solver.discretization import discretize_mesh
+    from mfv2d_tpu.solver.solve import SystemEvaluator
+
+    system = flow.navier_stokes(10.0).system
+    compiled = CompiledSystem(system)
+    mesh = jmf.examples.unit_square_mesh(4, 4, 10)
+    disc = discretize_mesh(mesh, system.unknown_forms, FemCache(3))
+    evaluator = SystemEvaluator(system.unknown_forms, compiled, disc)
+    return np.asarray(evaluator.element_matrices(compiled.lhs_blocks)[0])
+
+
+def test_streamed_mirror_inverts_navier_stokes_p10_blocks():
+    """The port's blocks against the JAX package's, and the mirror's
+    inverse of them against the JAX package's f64 inverse
+    (``newton_schulz_inverse``) and the plain version."""
+    a = navier_stokes_p10_blocks()
+    assert a.shape == (16, 441, 441) and a.dtype == torch.float64
+    ref_blocks = navier_stokes_p10_blocks_jax()
+    assert rel(a, ref_blocks) <= 1e-12
+    assert kernel.route(441, torch.float64) == "streamed"
+    inv, info = blocked_gj_mirror(a, kernel.panel_width(441))
+    assert torch.all(info == 0)
+    ref, _ = jprec.newton_schulz_inverse(jnp.asarray(ref_blocks))
+    assert rel(inv, np.asarray(ref)) <= 1e-10
+    assert rel(inv, tprec.gj_inverse_plain(a).numpy()) <= 1e-10
+
+
+@pytest.mark.parametrize("b", [32, 16])
+def test_streamed_mirror_reports_the_failing_pivot(b):
+    a = torch.tensor(np.concatenate([saddle_mix(460, seed=8)] * 2))
+    a[5, :, 17] = 0.0
+    _, info = blocked_gj_mirror(a, b)
+    assert info.tolist() == [0] * 5 + [18] + [0] * 2
+
+
+def test_route_rule_covers_every_n():
+    """Each n from 1 to 1,100 takes one route, the routes follow one another
+    in the order register, blocked, streamed, global, and each takes only
+    what its kernel holds."""
+    for dtype in (torch.float64, torch.float32):
+        taken = [kernel.route(n, dtype) for n in range(1, 1101)]
+        assert set(taken) <= set(kernel.ROUTES)
+        order = [kernel.ROUTES.index(r) for r in taken]
+        assert order == sorted(order)
+        for n, r in enumerate(taken, start=1):
+            if r == "register":
+                assert n <= kernel.REGISTER_MAX_N
+            if r == "blocked":
+                assert kernel.REGISTER_MAX_N < n <= kernel.BLOCKED_MAX_N
+            if r == "streamed":
+                # one, two or four panel rows a thread, at most 64 entries
+                assert n <= kernel.STREAMED_MAX_N
+                assert -(-n // 256) * kernel.panel_width(n) <= 64
+            if r == "global":
+                assert n > kernel.STREAMED_MAX_N
+        assert all(r == "register" for r in taken[:64])
+    # Two f64 blocked blocks fit on an SM (228 KB, 1 KB kept per block)
+    # up to BLOCKED_MAX_N; the ablation's boundary: blocked at 208,
+    # streamed from 224.
+    def blocked_bytes(n):  # blocked_route_bytes in csrc/gj_inverse.cu, f64
+        return (n * 33 + n * 32 + 2 * 32 + 8) * 8 + (8 + 2 * n) * 4
+
+    assert [2 * (blocked_bytes(n) + 1024) <= 233472 for n in (218, 219)] == [True, False]
+    assert kernel.route(208, torch.float64) == "blocked"
+    assert kernel.route(121, torch.float64) == "blocked"
+    for n in (224, 289, 320, 439, 441, 460, 625, 1024):
+        assert kernel.route(n, torch.float64) == "streamed"
+    for n in (460, 512, 625, 1024):
+        assert kernel.route(n, torch.float32) == "streamed"
+    assert kernel.route(1025, torch.float64) == "global"
+    with pytest.raises(ValueError):
+        kernel.route(0, torch.float64)
+
+
 def test_blocked_mirror_matches_gj_inverse_pallas():
     """The single-level case of test_plain_matches_gj_inverse_pallas, f32."""
     rng = np.random.default_rng(3)
@@ -235,6 +358,21 @@ def test_blocked_mirror_matches_gj_inverse_pallas():
     with jax.enable_x64(False):
         ref = np.asarray(gj_inverse_pallas(jnp.asarray(a), tile=4))
     mine, info = blocked_gj_mirror(torch.tensor(a), 32)
+    assert mine.dtype == torch.float32 and torch.all(info == 0)
+    assert rel(mine, ref) <= 5e-5
+
+
+@pytest.mark.parametrize("n, b", [(460, 32), (520, 16)])
+def test_streamed_mirror_matches_gj_inverse_pallas(n, b):
+    """test_blocked_mirror_matches_gj_inverse_pallas at streamed sizes, at
+    both panel widths; the TPU kernel pads n to 512 or 640 and takes two
+    levels."""
+    assert b == kernel.panel_width(n)
+    rng = np.random.default_rng(3)
+    a = (rng.normal(size=(4, n, n)) + n * np.eye(n)).astype(np.float32)
+    with jax.enable_x64(False):
+        ref = np.asarray(gj_inverse_pallas(jnp.asarray(a), tile=4))
+    mine, info = blocked_gj_mirror(torch.tensor(a), b)
     assert mine.dtype == torch.float32 and torch.all(info == 0)
     assert rel(mine, ref) <= 5e-5
 
@@ -339,8 +477,12 @@ def test_kernel_matches_plain_on_card(dtype):
         121: "blocked",
         170: "blocked",
         208: "blocked",
-        289: "blocked",
-        460: "global" if f64 else "blocked",
+        289: "streamed",
+        441: "streamed",
+        460: "streamed",
+        625: "streamed",
+        1024: "streamed",
+        1056: "global",
     }
     for n, route in routes.items():
         n_b = n // 3
@@ -355,7 +497,8 @@ def test_kernel_matches_plain_on_card(dtype):
     singular = torch.zeros((2, 5, 5), dtype=dtype, device="cuda")
     with pytest.raises(torch.linalg.LinAlgError, match="matrix 0"):
         kernel.gj_inverse(singular)
-    for n_m, n_b in ((139, 69), (38, 18)):  # n = 208 (blocked) and n = 56 (register)
+    # n = 460 (streamed), 208 (blocked) and 56 (register)
+    for n_m, n_b in ((307, 153), (139, 69), (38, 18)):
         singular = torch.tensor(saddle_blocks(8, n_m, n_b, seed=9), device="cuda").to(dtype)
         singular[5, :, 17] = 0.0
         with pytest.raises(torch.linalg.LinAlgError, match="matrix 5 .* pivot 18 "):

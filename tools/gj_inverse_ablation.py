@@ -1,40 +1,49 @@
 #!/usr/bin/env python3
-"""Route choices of csrc/gj_inverse.cu and where each route's time goes, on one GPU.
+"""Route choices of csrc/gj_inverse.cu and where the streamed route's time goes, on one GPU.
 
 Run from the repository root:
 
-    python3 tools/gj_inverse_ablation.py [--baseline OTHER.cu]
+    python3 tools/gj_inverse_ablation.py [--baseline OTHER.cu ...]
 
 Builds copies of ``mfv2d_torch/csrc/gj_inverse.cu`` into
 ``build/mfv2d_torch/ablation/`` (one nvcc each, in parallel):
 
-- ``kernel``: the source as it is (register route up to n = 64, then the
-  blocked route, then the global one);
-- ``baseline``: with ``--baseline``, another source with the same C entry
-  points, for instance an earlier revision's
-  (``git show REV:mfv2d_torch/csrc/gj_inverse.cu > build/baseline.cu``);
-- ``register-ticks``: the source with ``clock64()`` read by thread 0 of
-  block 0 at each phase boundary of the register route, and a query of the
-  blocks of the n = 56 f64 register kernel resident per SM;
-- ``no-update``: the blocked route's rank-32 tile updates cut out (panel
-  sweeps, panel loads and stores, the final column swaps);
-- ``memory-only``: the blocked route's pivot steps and update FMAs cut out
-  (every load and store of the route, nothing else);
-- ``ticks``: the source with ``clock64()`` read by thread 0 of block 0 at
-  each phase boundary of the blocked route.
+- ``kernel``: the source as it is; each run names the route (and, for the
+  streamed route, the panel width) that it hands the kernel, so one
+  library times every route at every n it takes;
+- one copy per ``--baseline`` file, named after it: another source, for
+  instance an earlier revision's
+  (``git show ca03f90:mfv2d_torch/csrc/gj_inverse.cu > build/ca03f90.cu``).
+  One whose C entry point chooses its route itself
+  (``mfv2d_gj_inverse_f64(a, out, info, E, n, stream)``, before the
+  streamed route) runs on its own route; one with this source's entry
+  point runs on the streamed route;
+- ``no-mma``: the streamed update's products cut out (its loads, copies
+  and stores only): the pass floor;
+- ``no-sweep``: the streamed panel's pivot steps cut out (panel loads and
+  stores, updates and column swaps only), so the time it loses is the
+  sweep chain's;
+- ``launches-only``: every streamed kernel returns at once: the launches'
+  own cost.
 
-All but the two cut copies compute the inverse and are held against
-``torch.linalg.inv``.  For each case (n, E, saddle matrices in f64 or f32)
-it prints ``torch.linalg.inv``'s CUDA-event median and each of the case's
-copies twice, timed in turns (A B B A):
+Every copy but the cut ones computes the inverse and is held against
+``torch.linalg.inv`` (1e-10 in f64, 1e-3 in f32).  For each case (n, E,
+saddle matrices in f64 or f32) it prints ``torch.linalg.inv``'s CUDA-event
+median and each run twice, timed in turns (A B B A); at E <= 16 a time is
+per call of ten calls back to back.  The cases:
 
-- n=56, E=4096, f64: the register route, against the baseline where
-  there is one, and its cycles by phase;
-- n=65, 72, 85, 121 and 161 (E=4096) and n=121, E=256 (the phase-9 batch)
-  in f64, and n=65, 121 and 208 (E=4096) in f32: the route n takes,
-  against the baseline where there is one;
-- n=208 (E=4096) and n=289 (E=1000), f64: the blocked route with its cut
-  copies and its cycles by phase.
+- n=460, E=1000 and n=441, E=16 (the phase-10 batch), f64: the streamed
+  route against the baseline, panels of 16 columns, and the cut copies;
+- n=208 (E=4096 and 1000), 224, 240 and 256 (E=1000) in f64, and n=208
+  and 224 (E=1000) in f32: the blocked route (which takes n <= 256)
+  against the streamed one, the measurement behind the boundary between
+  them (``route`` in ``ops/kernels/gj_inverse.py``);
+- the copies ``stages-2`` (a ring of two stages), ``rows-64`` (chunks of 64
+  rows, 8 warps) and ``warps-2`` (2 warps, each 16 rows by the whole tile)
+  at the first two cases: other shapes of the update;
+- at n=460, ``L2 waves``: the source as it is, called on successive slices
+  of 25 matrices (42 MB, which stay in the 50 MB L2 across a slice's
+  panels) in place of the whole batch.
 
 A copy whose text no longer matches the source stops the script with the
 substitution that failed.
@@ -56,180 +65,89 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
 from mfv2d_torch.ops.kernels import _build  # noqa: E402
+from mfv2d_torch.ops.kernels import gj_inverse  # noqa: E402
 
 OUT = ROOT / "build" / "mfv2d_torch" / "ablation"
-# (n, E, dtype, the copies timed on that case)
-ROUTE_CHOICE = ("kernel", "baseline")
-CASES = [
-    (56, 4096, torch.float64, ("kernel", "baseline", "register-ticks")),
-    (65, 4096, torch.float64, ROUTE_CHOICE),
-    (72, 4096, torch.float64, ROUTE_CHOICE),
-    (85, 4096, torch.float64, ROUTE_CHOICE),
-    (121, 4096, torch.float64, ROUTE_CHOICE),
-    (161, 4096, torch.float64, ROUTE_CHOICE),
-    (121, 256, torch.float64, ROUTE_CHOICE),
-    (65, 4096, torch.float32, ROUTE_CHOICE),
-    (121, 4096, torch.float32, ROUTE_CHOICE),
-    (208, 4096, torch.float32, ROUTE_CHOICE),
-    (208, 4096, torch.float64, ("kernel", "no-update", "memory-only", "ticks")),
-    (289, 1000, torch.float64, ("kernel", "no-update", "memory-only", "ticks")),
-]
 TOL = {torch.float64: 1e-10, torch.float32: 1e-3}
-CUT = ("no-update", "memory-only")
 
-NO_UPDATE = [
+NO_MMA = [
     (
-        "    for (int j0 = 0; j0 < n; j0 += kPanel) {\n      if (j0 == k0) continue;",
-        "    for (int j0 = 0; j0 < 0; j0 += kPanel) {\n      if (j0 == k0) continue;",
+        "  for (int s = 0; s < kB; s += 4) {\n    const double a0",
+        "  for (int s = 0; s < 0; s += 4) {\n    const double a0",
     )
 ]
-MEMORY_ONLY = [
+NO_SWEEP = [
     (
-        "    for (int t = 0; t < bk; ++t) {\n      const int k = k0 + t;",
-        "    for (int t = 0; t < 0; ++t) {\n      const int k = k0 + t;",
-    ),
-    (
-        "    for (int i = tid; i < n; i += kBlockedThreads) src[i] = i;\n    load_columns(",
-        "    for (int i = tid; i < n; i += kBlockedThreads) {\n      src[i] = i;\n"
-        "      perm[i] = i;\n    }\n    load_columns(",
-    ),
-    (
-        "        for (int t = 0; t < bk; ++t) {\n          T m[kRowsPerThread];",
-        "        for (int t = 0; t < 0; ++t) {\n          T m[kRowsPerThread];",
-    ),
+        "  for (int t = 0; t < bk; ++t) {\n    const int k = k0 + t;",
+        "  for (int t = 0; t < 0; ++t) {\n    const int k = k0 + t;",
+    )
 ]
-PHASES = [
-    "panel load",
-    "pivot steps: to the partial maxima",
-    "pivot steps: to the pivot row",
-    "pivot steps: the panel update",
-    "panel store",
-    "tile loads",
-    "tile FMAs and stores",
-    "final column swaps",
+LAUNCHES_ONLY = [
+    (f"  if (info[e] != 0) return;  // {why}", f"  return;  // {why}")
+    for why in (
+        "an earlier panel of this matrix failed",
+        "this matrix's panel failed",
+        "the matrix is singular",
+    )
 ]
-TICKS = [
+STAGES_2 = [("constexpr int kStreamStages = 3;", "constexpr int kStreamStages = 2;")]
+ROWS_64 = [
     (
-        "namespace {\n\nconstexpr int kWarp = 32;",
-        "__device__ unsigned long long ablation_cycles[8];\n"
-        "#define TICK(slot) do { if (blockIdx.x == 0 && threadIdx.x == 0) {"
-        " const long long now_ = clock64(); ablation_cycles[slot] += now_ - last_tick;"
-        " last_tick = now_; } } while (0)\n"
-        "namespace {\n\nconstexpr int kWarp = 32;",
-    ),
-    (
-        "  const int tr = tid / kTileColThreads;  // update: rows tr + 32 r of a chunk\n\n",
-        "  const int tr = tid / kTileColThreads;  // update: rows tr + 32 r of a chunk\n"
-        "  long long last_tick = clock64();\n\n",
-    ),
-    (
-        "    load_columns(w, n, k0, bk, static_cast<const int*>(nullptr), panel, kPanelStride);\n"
-        "    __syncthreads();\n",
-        "    load_columns(w, n, k0, bk, static_cast<const int*>(nullptr), panel, kPanelStride);\n"
-        "    __syncthreads();\n    TICK(0);\n",
-    ),
-    ("      __syncthreads();\n      key = red_key[0];", "      __syncthreads();\n      TICK(1);\n      key = red_key[0];"),
-    (
-        "      __syncthreads();\n#pragma unroll\n      for (int q = 0; q < kRows; ++q) {\n"
-        "        const int i = tid + q * kBlockedThreads;\n        if (i == k) {",
-        "      __syncthreads();\n      TICK(2);\n#pragma unroll\n      for (int q = 0; q < kRows; ++q) {\n"
-        "        const int i = tid + q * kBlockedThreads;\n        if (i == k) {",
-    ),
-    ("    }\n    // The panel now holds M", "      TICK(3);\n    }\n    // The panel now holds M"),
-    (
-        "panel[i * kPanelStride + t]);\n    }\n",
-        "panel[i * kPanelStride + t]);\n    }\n    TICK(4);\n",
-    ),
-    (
-        "      load_columns(w, n, j0, wj, src, tile, kPanel);\n      __syncthreads();\n",
-        "      load_columns(w, n, j0, wj, src, tile, kPanel);\n      __syncthreads();\n      TICK(5);\n",
-    ),
-    (
-        "      __syncthreads();\n    }\n  }\n\n  // 3. Undo the row swaps",
-        "      __syncthreads();\n      TICK(6);\n    }\n  }\n\n  // 3. Undo the row swaps",
-    ),
-    (
-        "  if (tid == 0) info[e] = 0;\n}\n\n// The current device",
-        "  TICK(7);\n  if (tid == 0) info[e] = 0;\n}\n\n// The current device",
-    ),
+        "constexpr int kStreamThreads = 128;\nconstexpr int kStreamRows = 32;",
+        "constexpr int kStreamThreads = 256;\nconstexpr int kStreamRows = 64;",
+    )
 ]
-REGISTER_PHASES = [
-    "load",
-    "rows into registers",
-    "steps: shuffles and warp maxima",
-    "steps: pivot row",
-    "steps: update",
-    "scatter and store",
-]
-REGISTER_TICKS = [
-    TICKS[0],
-    (
-        "  const long long nn = static_cast<long long>(n) * n;\n\n  unsigned char* fixed",
-        "  const long long nn = static_cast<long long>(n) * n;\n  long long last_tick = clock64();\n\n"
-        "  unsigned char* fixed",
-    ),
-    (
-        "    copy_async_wait();\n    group_sync<kThreads>(barrier_id);\n",
-        "    copy_async_wait();\n    group_sync<kThreads>(barrier_id);\n    TICK(0);\n",
-    ),
-    ("    bool used = r >= n;", "    TICK(1);\n    bool used = r >= n;"),
-    (
-        "publishes the warp maxima.\n      group_sync<kThreads>(barrier_id);\n",
-        "publishes the warp maxima.\n      group_sync<kThreads>(barrier_id);\n      TICK(2);\n",
-    ),
-    (
-        "      const T inv_pivot = T(1) / piv;\n      group_sync<kThreads>(barrier_id);\n",
-        "      const T inv_pivot = T(1) / piv;\n      group_sync<kThreads>(barrier_id);\n      TICK(3);\n",
-    ),
-    (
-        "      u[kLen - 1] = pivot ? T(1) : -f;\n",
-        "      u[kLen - 1] = pivot ? T(1) : -f;\n      TICK(4);\n",
-    ),
-    (
-        "    if (r == 0) info[e] = 0;\n    group_sync<kThreads>(barrier_id);",
-        "    if (r == 0) info[e] = 0;\n    group_sync<kThreads>(barrier_id);\n    TICK(5);",
-    ),
-]
-REGISTER_ENTRIES = """
-extern "C" int ablation_register_blocks_per_sm_56() {
-  int blocks = 0;
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &blocks, gj_inverse_register_kernel<double, 56>, kRegisterThreads,
-      register_route_bytes<double>(56));
-  return blocks;
-}
-"""
-TICK_ENTRIES = """
-extern "C" void ablation_reset() {
-  unsigned long long zero[8] = {};
-  cudaMemcpyToSymbol(ablation_cycles, zero, sizeof(zero));
-}
-extern "C" void ablation_read(unsigned long long* host) {
-  cudaMemcpyFromSymbol(host, ablation_cycles, sizeof(ablation_cycles));
-}
-"""
+WARPS_2 = [("constexpr int kStreamThreads = 128;", "constexpr int kStreamThreads = 64;")]
 COPIES = {
     "kernel": [],
-    "no-update": NO_UPDATE,
-    "memory-only": MEMORY_ONLY,
-    "ticks": TICKS,
-    "register-ticks": REGISTER_TICKS,
+    "no-mma": NO_MMA,
+    "no-sweep": NO_SWEEP,
+    "launches-only": LAUNCHES_ONLY,
+    "stages-2": STAGES_2,
+    "rows-64": ROWS_64,
+    "warps-2": WARPS_2,
 }
+CUT = ("no-mma", "no-sweep", "launches-only")
+
+# A run: (label, copy, route, panel width, matrices a call or None for the
+# whole batch); "baseline" stands for each --baseline copy.
+STREAMED = ("streamed", "kernel", "streamed", None, None)
+BLOCKED = ("blocked", "kernel", "blocked", None, None)
+PARTS = [
+    STREAMED,
+    ("baseline", "baseline", "streamed", None, None),
+    ("streamed b=16", "kernel", "streamed", 16, None),
+    ("no-mma", "no-mma", "streamed", None, None),
+    ("no-sweep", "no-sweep", "streamed", None, None),
+    ("launches-only", "launches-only", "streamed", None, None),
+    ("stages-2", "stages-2", "streamed", None, None),
+    ("rows-64", "rows-64", "streamed", None, None),
+    ("warps-2", "warps-2", "streamed", None, None),
+]
+L2_WAVES = ("L2 waves", "kernel", "streamed", None, 25)
+CASES = [
+    (460, 1000, torch.float64, [*PARTS, L2_WAVES]),
+    (441, 16, torch.float64, PARTS),
+    (208, 4096, torch.float64, (BLOCKED, STREAMED)),
+    (208, 1000, torch.float64, (BLOCKED, STREAMED)),
+    (224, 1000, torch.float64, (BLOCKED, STREAMED)),
+    (240, 1000, torch.float64, (BLOCKED, STREAMED)),
+    (256, 1000, torch.float64, (BLOCKED, STREAMED)),
+    (208, 1000, torch.float32, (BLOCKED, STREAMED)),
+    (224, 1000, torch.float32, (BLOCKED, STREAMED)),
+]
 
 
-def build(name: str, baseline: Path | None) -> ctypes.CDLL:
-    if name == "baseline":
-        text = baseline.read_text()
+def build(name: str, baselines: dict[str, Path]) -> tuple[ctypes.CDLL, bool]:
+    """The copy's library, and whether its entry point takes the route."""
+    if name in baselines:
+        text = baselines[name].read_text()
     else:
         text = (_build.CSRC / "gj_inverse.cu").read_text()
     for old, new in COPIES.get(name, []):
         if text.count(old) != 1:
             raise SystemExit(f"{name}: the source no longer holds {old!r}")
         text = text.replace(old, new)
-    if name in ("ticks", "register-ticks"):
-        text += TICK_ENTRIES
-    if name == "register-ticks":
-        text += REGISTER_ENTRIES
     source = OUT / f"{name}.cu"
     source.write_text(text)
     target = OUT / f"lib{name}.so"
@@ -238,10 +156,14 @@ def build(name: str, baseline: Path | None) -> ctypes.CDLL:
     if proc.returncode:
         raise SystemExit(f"{name}: nvcc failed\n{proc.stderr[-3000:]}")
     lib = ctypes.CDLL(str(target))
+    takes_route = "int* scratch" in text
     for fn in (lib.mfv2d_gj_inverse_f64, lib.mfv2d_gj_inverse_f32):
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+        if takes_route:
+            fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        else:
+            fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
-    return lib
+    return lib, takes_route
 
 
 def saddle_batch(n: int, e: int, seed: int) -> torch.Tensor:
@@ -261,7 +183,7 @@ def saddle_batch(n: int, e: int, seed: int) -> torch.Tensor:
     return pool_t.repeat(-(-e // 16), 1, 1)[:e].contiguous()
 
 
-def median_ms(fn, reps: int = 10) -> float:
+def median_ms(fn, reps: int = 10, calls: int = 1) -> float:
     for _ in range(2):
         fn()
     times = []
@@ -269,17 +191,19 @@ def median_ms(fn, reps: int = 10) -> float:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(calls):
+            fn()
         end.record()
         torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / calls)
     return float(np.median(times))
 
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument(
-        "--baseline", type=Path, help="another gj_inverse.cu, timed beside the source"
+        "--baseline", type=Path, nargs="+", default=[],
+        help="earlier gj_inverse.cu files, each timed beside the source",
     )
     args = parser.parse_args()
     if not torch.cuda.is_available():
@@ -291,59 +215,62 @@ def main() -> int:
     )
     print(smi.stdout.strip() or torch.cuda.get_device_name(0))
     OUT.mkdir(parents=True, exist_ok=True)
-    names_built = [*COPIES, "baseline"] if args.baseline else list(COPIES)
+    baselines = {f"baseline {path.stem}": path for path in args.baseline}
+    names_built = [*COPIES, *baselines]
     with ThreadPoolExecutor(len(names_built)) as pool:
         libs = dict(
-            zip(names_built, pool.map(lambda name: build(name, args.baseline), names_built))
+            zip(names_built, pool.map(lambda name: build(name, baselines), names_built))
         )
     stream = torch.cuda.current_stream().cuda_stream
-    for n, e, dtype, names in CASES:
-        names = tuple(name for name in names if name in libs)
+    for n, e, dtype, runs in CASES:
+        runs = [
+            (name, name, *rest) if copy == "baseline" else (label, copy, *rest)
+            for label, copy, *rest in runs
+            for name in (baselines if copy == "baseline" else [copy])
+        ]
         a = saddle_batch(n, e, seed=n).to(dtype)
         ref = torch.linalg.inv(a)
         out = torch.empty_like(a)
         info = torch.empty(e, dtype=torch.int32, device="cuda")
+        scratch = torch.empty((2, e, n), dtype=torch.int32, device="cuda")
         suffix = "f64" if dtype == torch.float64 else "f32"
+        calls = 10 if e <= 16 else 1
         print(
             f"n={n} E={e} {suffix}: torch.linalg.inv"
-            f" {median_ms(lambda: torch.linalg.inv(a)):.4f} ms"
+            f" {median_ms(lambda: torch.linalg.inv(a), calls=calls):.4f} ms"
+            + (" (per call of ten back to back)" if calls > 1 else "")
         )
 
-        def run(name):
-            rc = getattr(libs[name], f"mfv2d_gj_inverse_{suffix}")(
-                a.data_ptr(), out.data_ptr(), info.data_ptr(), e, n, ctypes.c_void_p(stream)
-            )
-            if rc:
-                raise RuntimeError(f"{name}: launch failed with CUDA error {rc}")
+        def call(run):
+            _, copy, route, panel, wave = run
+            lib, takes_route = libs[copy]
+            fn = getattr(lib, f"mfv2d_gj_inverse_{suffix}")
+            step = wave or e
+            for e0 in range(0, e, step):
+                count = min(step, e - e0)
+                ptrs = (a[e0:].data_ptr(), out[e0:].data_ptr(), info[e0:].data_ptr())
+                if not takes_route:
+                    rc = fn(*ptrs, count, n, ctypes.c_void_p(stream))
+                else:
+                    rc = fn(*ptrs, scratch.data_ptr(), count, n, gj_inverse.ROUTES.index(route),
+                            panel or gj_inverse.panel_width(n), ctypes.c_void_p(stream))
+                if rc:
+                    raise RuntimeError(f"{run[0]}: launch failed with CUDA error {rc}")
 
-        times = {name: [] for name in names}
-        for name in (*names, *reversed(names)):
-            times[name].append(median_ms(lambda: run(name)))
-        for name in names:
-            line = f"  {name:16s} {times[name][0]:9.4f} ms, again {times[name][1]:9.4f} ms"
-            if name not in CUT:
-                run(name)
+        times = {run[0]: [] for run in runs}
+        for run in (*runs, *reversed(runs)):
+            times[run[0]].append(median_ms(lambda: call(run), calls=calls))
+        for run in runs:
+            label = run[0]
+            line = f"  {label:16s} {times[label][0]:9.4f} ms, again {times[label][1]:9.4f} ms"
+            if run[1] not in CUT:
+                call(run)
                 torch.cuda.synchronize()
                 err = float((out - ref).abs().max() / ref.abs().max())
                 if not err <= TOL[dtype] or bool(info.any()):
-                    raise RuntimeError(f"{name} disagrees with torch.linalg.inv: {err:.3e}")
+                    raise RuntimeError(f"{label} disagrees with torch.linalg.inv: {err:.3e}")
                 line += f", rel err {err:.3e}"
             print(line)
-            if name in ("ticks", "register-ticks"):
-                lib = libs[name]
-                cycles = (ctypes.c_ulonglong * 8)()
-                lib.ablation_reset()
-                run(name)
-                torch.cuda.synchronize()
-                lib.ablation_read(cycles)
-                total = sum(cycles)
-                print(f"    block 0, one launch: {total} cycles")
-                if name == "register-ticks":
-                    lib.ablation_register_blocks_per_sm_56.restype = ctypes.c_int
-                    blocks = lib.ablation_register_blocks_per_sm_56()
-                    print(f"    blocks of {128} threads resident per SM: {blocks}")
-                for phase, c in zip(PHASES if name == "ticks" else REGISTER_PHASES, cycles):
-                    print(f"      {phase:36s} {c:10d} {100 * c / total:5.1f}%")
     return 0
 
 
