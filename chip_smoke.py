@@ -46,6 +46,16 @@ Phases (each ends in torch.cuda.synchronize(); any failure exits non-zero):
    p=10, linear_solver="schur_direct" (element blocks n=320), then
    Navier-Stokes Re=10, 4x4 mesh, p=10 the same way (blocks n=441); both
    on the inverse's streamed route
+11. steady Newton: phase 5's Navier-Stokes with method="newton" through
+   "direct" and "schur_direct", its iterations beside Picard's and the JAX
+   package's; a Jacobian after warm-up launches no kernel; then the fused
+   dense Newton at 8x8, p=5, with the dense saddle's bytes
+12. time marches: BASELINE config 2, the mixed heat march on 64x64, p=4
+   through "direct" (16 steps, error at t_end against the exact solution;
+   then its first 4 steps again, warm, under torch.profiler); the fused
+   dense linear march of the JAX bench's heat cell (16x16, p=4, 64 steps);
+   and the lid-driven cavity on 16x16, p=4 by the fused dense Picard march
+   and the fused dense Newton march, with iterations per step
 
 The line before the last is the kernel report (JSON), the last line the
 device summary (JSON).
@@ -101,11 +111,13 @@ INVERSE_TIMED = [
     "saddle n=460 E=1000",
     "phase-10 Poisson blocks n=320 E=256",
     "phase-10 blocks n=441 E=16",
+    "saddle n=1056 E=16",
 ]
-# The route each timed n takes in f64; every timed case must beat
+# The route each timed n takes in f64; every timed case but the global
+# route's (timed beside it, still to be redesigned) must beat
 # torch.linalg.inv.
 INVERSE_ROUTES = {56: "register", 121: "blocked", 208: "blocked", 289: "streamed",
-                  320: "streamed", 441: "streamed", 460: "streamed"}
+                  320: "streamed", 441: "streamed", 460: "streamed", 1056: "global"}
 INVERSE_TOL = {torch.float64: 1e-10, torch.float32: 1e-3}
 # The H100 SXM's HBM rate and FP64 peak (tensor cores; NVIDIA data sheet):
 # the bound of a kernel is the larger of its compulsory bytes and its
@@ -425,9 +437,12 @@ def phase4_main_path() -> int:
     return launches
 
 
-def _navier_stokes(linear_solver: str, n: int = 16, p: int = 5) -> tuple[int, float, float]:
+def _navier_stokes(
+    linear_solver: str, n: int = 16, p: int = 5, method: str = "picard", max_err: float = 1e-8
+):
     """Phase 5's Navier-Stokes solve (or its setup on another mesh and
-    order); returns iterations, velocity error, wall."""
+    order, or by Newton, which takes full steps); returns iterations,
+    velocity error, wall and the solve's statistics."""
     import mfv2d_torch as mf
     from mfv2d_torch.models import flow
 
@@ -443,8 +458,9 @@ def _navier_stokes(linear_solver: str, n: int = 16, p: int = 5) -> tuple[int, fl
         mf.SystemSettings(model.system, [bc], [(0.0, model.pressure)]),
         mf.SolverSettings(
             mf.ConvergenceSettings(max_iter, atol, 0.0),
-            relaxation=0.7,
+            relaxation=0.7 if method == "picard" else 1.0,
             linear_solver=linear_solver,
+            method=method,
         ),
         recon_order=max(10, p),
         device="cuda",
@@ -454,17 +470,17 @@ def _navier_stokes(linear_solver: str, n: int = 16, p: int = 5) -> tuple[int, fl
     iters = int(stats.iter_history[-1])
     err = _l2_point_error(grids[-1], "vel", flow.ns_velocity_exact)
     if iters >= max_iter:
-        raise RuntimeError(f"Navier-Stokes Picard ({linear_solver}) did not converge")
-    if not err <= 1e-8:
-        raise RuntimeError(f"Navier-Stokes velocity error {err:.3e} > 1e-8")
-    return iters, err, wall
+        raise RuntimeError(f"Navier-Stokes {method} ({linear_solver}) did not converge")
+    if not err <= max_err:
+        raise RuntimeError(f"Navier-Stokes velocity error {err:.3e} > {max_err:.0e}")
+    return iters, err, wall, stats
 
 
 def phase5_picard() -> int:
     from mfv2d_torch.ops.kernels import mass_edge
 
     mass_edge.launches = 0
-    iters, err, wall = _navier_stokes("direct")
+    iters, err, wall, _ = _navier_stokes("direct")
     print(
         f"phase 5: Navier-Stokes Re=10 16x16 p=5: {iters} Picard iterations,"
         f" velocity error {err:.3e}, wall {wall:.3f} s,"
@@ -606,15 +622,16 @@ def phase6_inverse_vs_plain() -> dict:
     for name in INVERSE_TIMED:
         a = cases[name]
         e, n = a.shape[0], a.shape[1]
-        ms = _median_ms(lambda: gj_inverse.gj_inverse(a))
-        library_ms = _median_ms(lambda: gj_inverse_plain(a))
+        route = gj_inverse.route(n, torch.float64)
+        reps = 5 if route == "global" else 20  # the global route: ~0.1 s a call
+        ms = _median_ms(lambda: gj_inverse.gj_inverse(a), reps=reps)
+        library_ms = _median_ms(lambda: gj_inverse_plain(a), reps=reps)
         timing = {}
-        if e <= 16:  # a batch this small may be led by the launches
+        if e <= 16 and route != "global":  # a batch this small may be led by the launches
             timing["ms_back_to_back"] = _median_ms(lambda: gj_inverse.gj_inverse(a), calls=10)
             timing["library_ms_back_to_back"] = _median_ms(lambda: gj_inverse_plain(a), calls=10)
         torch.cuda.synchronize()
         bound_ms, bound_by = _bound(2 * a.numel() * a.element_size(), 2 * n**3 * e)
-        route = gj_inverse.route(n, torch.float64)
         by_kernel = _kernel_launches(lambda: gj_inverse.gj_inverse(a), "gj_")
         launches = sum(by_kernel.values()) or None  # None: the profiler saw no kernel
         print(
@@ -631,7 +648,9 @@ def phase6_inverse_vs_plain() -> dict:
         )
     for timed in routes:
         want = INVERSE_ROUTES[timed["n"]]
-        if timed["route"] != want or not timed["ms"] < timed["library_ms"]:
+        if timed["route"] != want:
+            raise RuntimeError(f"n={timed['n']} takes the {timed['route']} route, not {want}")
+        if want != "global" and not timed["ms"] < timed["library_ms"]:
             raise RuntimeError(f"the {want} route does not beat torch.linalg.inv: {timed}")
     first = routes[0]
     return {
@@ -761,7 +780,7 @@ def phase9_picard_condensed(direct_iterations: int) -> None:
 
     gj_inverse.launches = 0
     mass_edge.launches = 0
-    iters, err, wall = _navier_stokes("schur_direct")
+    iters, err, wall, _ = _navier_stokes("schur_direct")
     print(
         f"phase 9: Navier-Stokes Re=10 16x16 p=5 schur_direct: {iters} Picard"
         f" iterations (direct: {direct_iterations}), velocity error {err:.3e},"
@@ -796,7 +815,7 @@ def phase10_streamed_table() -> tuple[int, int]:
         raise RuntimeError(f"the n=441 blocks take the {route} route, not the streamed one")
     gj_inverse.launches = 0
     mass_edge.launches = 0
-    iters, err, wall = _navier_stokes("schur_direct", n=4, p=10)
+    iters, err, wall, _ = _navier_stokes("schur_direct", n=4, p=10)
     print(
         f"phase 10: Navier-Stokes Re=10 4x4 p=10 schur_direct: {iters} Picard"
         f" iterations, velocity error {err:.3e}, wall {wall:.3f} s; n=441 blocks"
@@ -804,6 +823,281 @@ def phase10_streamed_table() -> tuple[int, int]:
     )
     _require_launches(10, gj_inverse=gj_inverse.launches, mass_edge=mass_edge.launches)
     return launches, gj_inverse.launches
+
+
+
+# The JAX package's Newton iterations for phase 11's setups, taken on the CPU
+# (mfv2d_tpu.solve_system_2d with JAX_PLATFORMS=cpu and the same settings).
+JAX_NEWTON_ITERATIONS = {"direct": 2, "schur_direct": 2, "dense 8x8": 2}
+
+
+def _newton_evaluator(n: int, p: int):
+    """A fresh evaluator of phase 5's Navier-Stokes system on the card."""
+    import mfv2d_torch as mf
+    from mfv2d_torch.compiler import CompiledSystem
+    from mfv2d_torch.models import flow
+    from mfv2d_torch.ops.basis import FemCache
+    from mfv2d_torch.solver.discretization import discretize_mesh
+    from mfv2d_torch.solver.solve import SystemEvaluator
+
+    system = flow.navier_stokes(10.0).system
+    mesh = mf.examples.unit_square_mesh(n, n, p)
+    disc = discretize_mesh(mesh, system.unknown_forms, FemCache(3), device="cuda")
+    return SystemEvaluator(disc.form_spec, CompiledSystem(system), disc)
+
+
+def _check_jacobians() -> None:
+    """Phase 11's Jacobians: the first call computes the masses (the kernels
+    run there, outside the transform), a call after it launches no kernel;
+    each Jacobian agrees with a central difference of the residual."""
+    from mfv2d_torch.ops.kernels import gj_inverse, mass_edge
+
+    n, p = 16, 5
+    evaluator = _newton_evaluator(n, p)
+    batch = evaluator.disc.buckets[0].batch
+    rng = np.random.default_rng(11)
+    u = torch.tensor(rng.normal(size=evaluator.disc.buckets[0].gather.shape), device="cuda")
+    counts = []
+    for _ in range(2):
+        gj_inverse.launches = 0
+        mass_edge.launches = 0
+        t0 = time.perf_counter()
+        jac = evaluator.bucket_jacobians(0, u)
+        torch.cuda.synchronize()
+        counts.append((mass_edge.launches, gj_inverse.launches, time.perf_counter() - t0))
+    (first_mass, _, first_s), (warm_mass, warm_inverse, warm_s) = counts
+    du = torch.tensor(rng.normal(size=u.shape), device="cuda")
+    h = 1e-6
+    diff = (evaluator.bucket_residual(0, u + h * du) - evaluator.bucket_residual(0, u - h * du)) / (2 * h)
+    err = rel_err(torch.einsum("eij,ej->ei", jac, du), diff)
+    print(
+        f"  Jacobians {n}x{n} p={p} (E={batch.n_elements}, N={jac.shape[1]}):"
+        f" first call {first_s:.3f} s with {first_mass} mass_edge launches, after"
+        f" warm-up {warm_s:.3f} s with {warm_mass} mass_edge and {warm_inverse}"
+        f" gj_inverse launches; J du against a central difference: rel err {err:.3e}"
+    )
+    if first_mass <= 0 or warm_mass or warm_inverse:
+        raise RuntimeError("a Jacobian after warm-up launched a kernel, or warm-up none")
+    if not (torch.isfinite(jac).all() and err <= 1e-6):
+        raise RuntimeError(f"the Jacobians disagree with a central difference: {err:.3e}")
+
+
+def phase11_newton(picard_iterations: int) -> dict:
+    from mfv2d_torch.ops.kernels import gj_inverse, mass_edge
+
+    launches = {}
+    # The coarser dense mesh's error: 1.599e-08 in the JAX package (CPU).
+    cases = [("direct", 16, 1e-8), ("schur_direct", 16, 1e-8), ("dense", 8, 1e-7)]
+    for linear_solver, n, max_err in cases:
+        gj_inverse.launches = 0
+        mass_edge.launches = 0
+        iters, err, wall, stats = _navier_stokes(
+            linear_solver, n=n, method="newton", max_err=max_err
+        )
+        key = linear_solver if n == 16 else f"{linear_solver} {n}x{n}"
+        dense = ""
+        if linear_solver == "dense":
+            dense = f", dense saddle {stats.n_total_dofs}^2 f64 = {stats.n_total_dofs**2 * 8} bytes"
+        print(
+            f"phase 11: Navier-Stokes Re=10 {n}x{n} p=5 Newton, {linear_solver}:"
+            f" {iters} iterations (Picard at 16x16: {picard_iterations}; the JAX"
+            f" package on the CPU: {JAX_NEWTON_ITERATIONS[key]}), residuals"
+            f" {stats.residual_history.tolist()}, velocity error {err:.3e},"
+            f" wall {wall:.3f} s{dense}"
+        )
+        counts = {"mass_edge": mass_edge.launches}
+        if linear_solver == "schur_direct":
+            counts["gj_inverse"] = gj_inverse.launches
+        _require_launches(11, **counts)
+        launches[key] = {"mass_edge": mass_edge.launches, "gj_inverse": gj_inverse.launches}
+        if iters != JAX_NEWTON_ITERATIONS[key]:
+            raise RuntimeError(f"Newton ({key}) took {iters} iterations, the JAX package {JAX_NEWTON_ITERATIONS[key]}")
+    _check_jacobians()
+    return launches
+
+
+# BASELINE config 2, the gallery's mixed heat march (examples/unsteady/heat_mixed.py).
+HEAT_ALPHA, HEAT_BETA, HEAT_T_END, HEAT_NT = 0.02, 1.0, 2.0, 16
+
+
+def _heat_steady(x, y):
+    return np.cos(np.pi * x / 2) * np.cos(np.pi * y / 2)
+
+
+def _heat_march(n: int, p: int, linear_solver: str, nt: int = HEAT_NT):
+    import mfv2d_torch as mf
+    from mfv2d_torch.models import transport
+    from mfv2d_torch.ops.kernels import mass_edge
+    from mfv2d_torch.tracing import tracer
+
+    model = transport.heat_mixed(HEAT_ALPHA, HEAT_BETA, _heat_steady)
+    mesh = mf.examples.unit_square_mesh(n, n, p)
+    mass_edge.launches = 0
+    tracer.enable()
+    tracer.reset()
+    t0 = time.perf_counter()
+    grids, stats, _ = mf.solve_system_2d(
+        mesh,
+        mf.SystemSettings(model.system),
+        mf.SolverSettings(mf.ConvergenceSettings(20, 1e-10, 0), linear_solver=linear_solver),
+        time_settings=mf.TimeSettings(
+            dt=HEAT_T_END / HEAT_NT, nt=nt,
+            time_march_relations=model.time_march_relations,
+        ),
+        recon_order=p,
+        device="cuda",
+    )
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    tracer.disable()
+    t_end = float(grids[-1].field_data["time"][0])
+    decay = 1 - np.exp(-HEAT_BETA * t_end)
+    err = _l2_point_error(grids[-1], "u", lambda x, y: _heat_steady(x, y) * decay)
+    times = [float(g.field_data["time"][0]) for g in grids]
+    t_want = HEAT_T_END / HEAT_NT * nt
+    if len(grids) != nt + 1 or not np.isclose(t_end, t_want) or times != sorted(times):
+        raise RuntimeError(f"heat march grids: {len(grids)}, times {times}")
+    return stats, err, wall, mass_edge.launches, dict(tracer.stages)
+
+
+# The JAX bench's heat cell (bench_solve.py, "heat implicit march 16x16
+# p=4"): u_t = lap u in mixed form, 64 steps of 1e-2, here from
+# u_0 = cos(pi x / 2) cos(pi y / 2), so u = exp(-pi^2 t / 2) u_0.  The flux
+# starts at q_0 = grad u_0 too: the trapezoidal start reads the initial
+# time derivative from the initial state, and with q_0 = 0 it would be zero.
+LINEAR_HEAT_DT, LINEAR_HEAT_NT = 1e-2, 64
+
+
+def _heat_steady_gradient(x, y):
+    return np.stack(
+        (
+            -np.pi / 2 * np.sin(np.pi * x / 2) * np.cos(np.pi * y / 2),
+            -np.pi / 2 * np.cos(np.pi * x / 2) * np.sin(np.pi * y / 2),
+        ),
+        axis=-1,
+    )
+
+
+def _linear_heat_march():
+    import mfv2d_torch as mf
+    from mfv2d_torch.ops.kernels import mass_edge
+
+    u = mf.KFormUnknown("u", mf.UnknownFormOrder.FORM_ORDER_2)
+    q = mf.KFormUnknown("q", mf.UnknownFormOrder.FORM_ORDER_1)
+    system = mf.KFormSystem(
+        q.weight.derivative @ u - q.weight @ q == 0,
+        u.weight @ q.derivative == 0,
+    )
+    mesh = mf.examples.unit_square_mesh(16, 16, 4)
+    mass_edge.launches = 0
+    t0 = time.perf_counter()
+    grids, stats, _ = mf.solve_system_2d(
+        mesh,
+        mf.SystemSettings(
+            system, initial_conditions={u: _heat_steady, q: _heat_steady_gradient}
+        ),
+        mf.SolverSettings(mf.ConvergenceSettings(20, 1e-10, 0), linear_solver="dense"),
+        time_settings=mf.TimeSettings(
+            dt=LINEAR_HEAT_DT, nt=LINEAR_HEAT_NT, time_march_relations={u.weight: u},
+            sample_rate=LINEAR_HEAT_NT,
+        ),
+        recon_order=4,
+        device="cuda",
+    )
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    t_end = float(grids[-1].field_data["time"][0])
+    if not np.isclose(t_end, LINEAR_HEAT_DT * LINEAR_HEAT_NT):
+        raise RuntimeError(f"linear heat march ends at t={t_end}")
+    decay = np.exp(-np.pi**2 * t_end / 2)
+    err = _l2_point_error(grids[-1], "u", lambda x, y: _heat_steady(x, y) * decay)
+    return stats, err, wall, mass_edge.launches
+
+
+def phase12_marches() -> dict:
+    import mfv2d_torch as mf
+    from mfv2d_torch.models import flow
+    from mfv2d_torch.ops.kernels import mass_edge
+
+    launches = {}
+    stats, err, wall, count, stages = _heat_march(64, 4, "direct")
+    print(
+        f"phase 12: heat march (BASELINE config 2) 64x64 p=4 direct: {stats.n_total_dofs}"
+        f" unknowns, {HEAT_NT} steps of dt={HEAT_T_END / HEAT_NT}, iterations per"
+        f" step {stats.iter_history.tolist()}, L2 point error at t={HEAT_T_END}"
+        f" {err:.3e}, wall {wall:.3f} s, mass_edge launches {count}"
+    )
+    for name, (calls, total) in sorted(stages.items(), key=lambda kv: -kv[1][1]):
+        print(f"  stage {name:28s} {total:9.4f} s ({calls} calls)")
+    _require_launches(12, mass_edge=count)
+    launches["heat 64x64 direct"] = count
+    if not err <= 1e-3:
+        raise RuntimeError(f"heat march error {err:.3e} > 1e-3")
+    _device_profile(
+        "phase 12, heat march 64x64 p=4 direct, first 4 steps, warm",
+        lambda: _heat_march(64, 4, "direct", nt=4),
+    )
+
+    stats16, err16, wall16, count = _linear_heat_march()
+    print(
+        f"phase 12: fused dense linear heat march 16x16 p=4: {stats16.n_total_dofs}"
+        f" unknowns (dense saddle {stats16.n_total_dofs**2 * 8} bytes),"
+        f" {LINEAR_HEAT_NT} steps of dt={LINEAR_HEAT_DT}, L2 point error"
+        f" {err16:.3e}, wall {wall16:.3f} s, mass_edge launches {count}"
+    )
+    _require_launches(12, mass_edge=count)
+    launches["linear heat 16x16 dense"] = count
+    if not err16 <= 5e-5:
+        raise RuntimeError(f"linear heat march error {err16:.3e} > 5e-5")
+
+    def lid(x, y):
+        on = np.isclose(y, 1.0)
+        return np.stack((np.where(on, 1.0, 0.0), np.zeros_like(y)), axis=-1)
+
+    # The gallery's cavity (examples/unsteady/cavity_flow.py: Re=25, dt=0.25,
+    # Picard relaxation 0.8) on 16x16, p=4, four steps.
+    model = flow.cavity_flow(25.0, lid)
+    finals = {}
+    for method, relaxation in (("picard", 0.8), ("newton", 1.0)):
+        mesh = mf.examples.unit_square_mesh(16, 16, 4)
+        bc = mf.BoundaryCondition2DSteady(model.velocity, mesh.boundary_indices, lid)
+        mass_edge.launches = 0
+        t0 = time.perf_counter()
+        grids, stats, _ = mf.solve_system_2d(
+            mesh,
+            mf.SystemSettings(model.system, [bc], [(0.0, model.pressure)]),
+            mf.SolverSettings(
+                mf.ConvergenceSettings(30, 1e-8, 0), relaxation=relaxation,
+                linear_solver="dense", method=method,
+            ),
+            time_settings=mf.TimeSettings(
+                dt=0.25, nt=4, time_march_relations=model.time_march_relations
+            ),
+            recon_order=4,
+            device="cuda",
+        )
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        vel = grids[-1].point_data["vel"]
+        finals[method] = vel
+        print(
+            f"phase 12: cavity Re=25 16x16 p=4 fused dense {method} march:"
+            f" {stats.n_total_dofs} unknowns (dense saddle"
+            f" {stats.n_total_dofs**2 * 8} bytes), iterations per step"
+            f" {stats.iter_history.tolist()}, last residuals"
+            f" {stats.residual_history.tolist()}, max speed"
+            f" {float(np.max(np.linalg.norm(vel, axis=-1))):.6f}, wall {wall:.3f} s,"
+            f" mass_edge launches {mass_edge.launches}"
+        )
+        _require_launches(12, mass_edge=mass_edge.launches)
+        launches[f"cavity 16x16 dense {method}"] = mass_edge.launches
+        if not np.isfinite(vel).all() or int(stats.iter_history.max()) >= 30:
+            raise RuntimeError(f"the cavity {method} march did not converge")
+    gap = float(np.abs(finals["picard"] - finals["newton"]).max())
+    print(f"  cavity: Picard and Newton end states differ by {gap:.3e}")
+    if not gap <= 1e-6:
+        raise RuntimeError(f"the cavity marches disagree: {gap:.3e}")
+    return launches
 
 
 def main() -> int:
@@ -837,10 +1131,16 @@ def main() -> int:
     phase9_picard_condensed(direct_iterations)
     phase10_mass_launches, phase10_inverse_launches = phase10_streamed_table()
     mass_launches.append(phase10_mass_launches)
+    newton_launches = phase11_newton(direct_iterations)
+    march_launches = phase12_marches()
     # One mass_edge entry per timed shape, each with the launches of the
     # main path its "launches_in" names: phases 4, 8 and 10.  The inverse's
     # launches are phase 7's (register route) and, for the streamed route,
     # phase 10's Navier-Stokes solve.
+    # Phases 11 and 12 launch M1 at p=4 and p=5; their counts ride on the
+    # p=4 entry.
+    mass_timing[0]["launches_phase11"] = {k: c["mass_edge"] for k, c in newton_launches.items()}
+    mass_timing[0]["launches_phase12"] = march_launches
     report = {
         "kernels": [
             *(
@@ -861,6 +1161,9 @@ def main() -> int:
                 "replaces": "mfv2d_tpu/ops/pallas_factor.py:136",
                 "launches": inverse_launches,
                 "launches_streamed_phase10": phase10_inverse_launches,
+                "launches_newton_phase11": {
+                    k: c["gj_inverse"] for k, c in newton_launches.items()
+                },
                 **inverse_timing,
             },
         ]

@@ -4,8 +4,9 @@ The port of ``mfv2d_tpu`` to PyTorch and CUDA.  The k-form DSL, compiler,
 mesh and constraints are host NumPy/SciPy; element assembly and residuals
 run as batched float64 tensor work on the CUDA device, or on the CPU where
 the caller passes ``device="cpu"``, with the 1-form mass matrix and the
-element inverses computed by hand-written CUDA kernels on the GPU.  The steady direct Picard path is
-ported; see ROADMAP.md for what is still to come.
+element inverses computed by hand-written CUDA kernels on the GPU.  Steady
+Picard and Newton solves and the trapezoidal time marches are ported; see
+ROADMAP.md for what is still to come.
 """
 
 from mfv2d_torch import examples as examples

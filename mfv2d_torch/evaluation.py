@@ -58,6 +58,18 @@ from mfv2d_torch.ops.mass import (
 from mfv2d_torch.system import ElementFormSpecification
 
 
+def check_device(device) -> torch.device:
+    """``device`` as a ``torch.device``.  A CUDA device must be present: the
+    port never falls back to the CPU unless the caller asks for it."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "mfv2d_torch runs on the CUDA device by default and none is"
+            ' available; pass device="cpu" to run on the CPU.'
+        )
+    return device
+
+
 def _mass_solve(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Batched solve ``A X = B`` for mass matrices."""
     return torch.linalg.solve(a, b)
@@ -76,16 +88,17 @@ class ElementBatch:
     """A batch of elements sharing basis orders and integration rules.
 
     Holds the per-batch geometry (Jacobian terms at quadrature points, in
-    float64 on ``device``) and memoizes mass matrices/inverses.  The
+    float64 on ``device``: the CUDA device unless the caller asks for
+    ``"cpu"``) and memoizes mass matrices/inverses.  The
     geometry of a batch never changes, so the memo is reused across Picard
     iterations (the reference's per-element lazy mass cache,
     element_fem_space.c:445-469, amortized over the whole batch).
     """
 
-    def __init__(self, basis: Basis2D, corners, device="cpu") -> None:
+    def __init__(self, basis: Basis2D, corners, device="cuda") -> None:
         self.basis = basis
         self.tb: TensorBasis = tensor_basis(basis)
-        self.device = torch.device(device)
+        self.device = check_device(device)
         corners_np = np.asarray(corners, np.float64)
         if corners_np.ndim == 2:
             corners_np = corners_np[None]

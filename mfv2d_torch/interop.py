@@ -11,14 +11,17 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from mfv2d_torch.evaluation import check_device
 from mfv2d_torch.ops.geometry import JacobianTerms
 
 
-def jacobian_terms_from_numpy(j00, j01, j10, j11, det, device="cpu") -> JacobianTerms:
+def jacobian_terms_from_numpy(j00, j01, j10, j11, det, device="cuda") -> JacobianTerms:
     """The port's ``JacobianTerms`` from NumPy arrays of the same terms.
 
-    Each array is copied into a contiguous tensor of its own dtype on ``device``.
+    Each array is copied into a contiguous tensor of its own dtype on
+    ``device``, the CUDA device unless the caller asks for ``"cpu"``.
     """
+    device = check_device(device)
     return JacobianTerms(
         *(
             torch.tensor(np.asarray(v), device=device)

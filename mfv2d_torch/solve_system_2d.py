@@ -1,4 +1,4 @@
-"""The main solver entry point: the steady hybridized MSEM solve.
+"""The main solver entry point: steady/unsteady hybridized MSEM solve.
 
 Orchestrates the pipeline (reference: python/mfv2d/solve_system_2d.py):
 
@@ -10,12 +10,13 @@ Orchestrates the pipeline (reference: python/mfv2d/solve_system_2d.py):
    (``linear_solver="direct"``), a dense device LU (``"dense"``), or the
    element-local trace solvers (``"schur"``, ``"schur_direct"``, ``"pcg"``,
    ``"gmres"``),
-5. run the Picard loop,
+5. run the Picard or Newton loop (and the trapezoidal time march when
+   requested): on the host over the frozen solver, or, with ``"dense"``,
+   as device loops (solver/fused.py),
 6. reconstruct the output grids.
 
-Only the steady branch with ``method="picard"`` is ported so far; every
-other input raises ``NotImplementedError`` naming the ROADMAP item that
-will port it.
+Refinement, VMS, multi-device solves and checkpoints are not ported yet and
+raise ``NotImplementedError`` naming the ROADMAP item that will port them.
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ from collections.abc import Sequence
 import numpy as np
 
 from mfv2d_torch.compiler import CompiledSystem
+from mfv2d_torch.kform import KEquation
 from mfv2d_torch.mesh.quadtree import Mesh
 from mfv2d_torch.ops.basis import FemCache
 from mfv2d_torch.solver.discretization import discretize_mesh
@@ -38,11 +40,15 @@ from mfv2d_torch.solver.solve import (
     SystemSettings,
     TimeSettings,
     VMSSettings,
+    compute_element_dual_from_primal_global,
+    compute_forcing_vector,
     compute_initial_solution,
     compute_linear_system,
+    find_time_carry_indices,
     non_linear_solve_run,
     reconstruct_mesh_from_solution,
 )
+from mfv2d_torch.system import KFormSystem
 from mfv2d_torch.vis import ReconstructedGrid
 
 
@@ -55,13 +61,10 @@ def _not_ported(feature: str, item: str) -> NotImplementedError:
 
 def _check_ported(
     solver_settings: SolverSettings,
-    time_settings,
     refinement_settings,
     vms_settings,
     checkpoint_settings,
 ) -> None:
-    if time_settings is not None:
-        raise _not_ported("time_settings (time marches)", "6")
     if refinement_settings is not None:
         raise _not_ported("refinement_settings (hp refinement)", "7")
     if vms_settings is not None:
@@ -70,8 +73,32 @@ def _check_ported(
         raise _not_ported("SolverSettings.device_mesh (multi-device)", "10")
     if checkpoint_settings is not None:
         raise _not_ported("checkpoint_settings (checkpoints)", "11")
-    if solver_settings.method != "picard":
-        raise _not_ported(f"method={solver_settings.method!r} (Newton)", "4")
+
+
+
+
+def _make_solver(solver_settings: SolverSettings, disc, evaluator, matrices,
+                 lagrange_mat, n_lagrange: int):
+    """The frozen linear solver that ``linear_solver`` names."""
+    if solver_settings.linear_solver == "direct":
+        return FrozenSaddleSolver(evaluator.matrices_per_leaf(matrices), lagrange_mat)
+    if solver_settings.linear_solver == "dense":
+        from mfv2d_torch.solver.iterative import DenseSaddleSolver
+
+        return DenseSaddleSolver(disc, matrices, lagrange_mat)
+    from mfv2d_torch.solver.iterative import IterativeSaddleSolver
+
+    return IterativeSaddleSolver(
+        disc,
+        matrices,
+        lagrange_mat,
+        ConvergenceSettings(
+            maximum_iterations=max(200, 4 * (disc.n_dofs + n_lagrange)),
+            absolute_tolerance=solver_settings.convergence.absolute_tolerance * 1e-3,
+            relative_tolerance=1e-12,
+        ),
+        method=solver_settings.linear_solver,
+    )
 
 
 def solve_system_2d(
@@ -87,40 +114,46 @@ def solve_system_2d(
     checkpoint_settings=None,
     device="cuda",
 ) -> tuple[Sequence[ReconstructedGrid], SolutionStatistics, Mesh]:
-    """Solve the steady k-form system on the mesh.
+    """Solve the k-form system on the mesh, steady or as a trapezoidal march.
 
     The element work runs on ``device`` in float64: the CUDA device by
     default, the CPU only where the caller passes ``device="cpu"``.  Without
     a CUDA device the default raises; it never falls back to the CPU.
-    Returns the reconstructed solution grids (the initial iterate and the
-    converged one), statistics, and the mesh.
+    Returns the reconstructed solution grids (the initial state, then the
+    converged steady solution or one grid per sampled time step, each with
+    its ``time`` field), statistics, and the mesh.
     """
-    _check_ported(
-        solver_settings,
-        time_settings,
-        refinement_settings,
-        vms_settings,
-        checkpoint_settings,
-    )
+    _check_ported(solver_settings, refinement_settings, vms_settings, checkpoint_settings)
     system = system_settings.system
     constrained_forms = system_settings.constrained_forms
     boundary_conditions = system_settings.boundary_conditions
 
-    from mfv2d_torch.boundary import BoundaryCondition2DUnsteady
+    from mfv2d_torch.boundary import (
+        BoundaryCondition2DUnsteady,
+        freeze_unsteady_boundary_conditions,
+    )
     from mfv2d_torch.kform import KExplicit, TimeDependent
     from mfv2d_torch.tracing import tracer
 
-    if any(
+    has_unsteady_bcs = any(
         isinstance(bc, BoundaryCondition2DUnsteady)
         for bc in (boundary_conditions or [])
-    ):
-        raise ValueError("Unsteady boundary conditions require time_settings.")
-    if any(
+    )
+    has_td_rhs = any(
         isinstance(f, KExplicit) and isinstance(f.func, TimeDependent)
         for eq in system.equations
         for _, f in eq.right.explicit_terms
-    ):
+    )
+    if has_td_rhs and time_settings is None:
         raise ValueError("TimeDependent forcing requires time_settings.")
+    if has_unsteady_bcs:
+        if time_settings is None:
+            raise ValueError("Unsteady boundary conditions require time_settings.")
+        # Step n solves for t = (n + 1) dt; the initial system is frozen at
+        # the first time level and re-evaluated inside the march loop.
+        boundary_conditions = freeze_unsteady_boundary_conditions(
+            boundary_conditions, time_settings.dt
+        )
     for _, form in constrained_forms:
         if form not in system.unknown_forms:
             raise ValueError(
@@ -134,6 +167,13 @@ def solve_system_2d(
 
     basis_cache = FemCache(order_difference=system_settings.over_integration_order)
 
+    if time_settings is not None:
+        if time_settings.sample_rate < 1:
+            raise ValueError("Sample rate can not be less than 1.")
+        if len(time_settings.time_march_relations) < 1:
+            raise ValueError("Problem has no time march relations.")
+        system = update_system_for_time_march(time_settings, system)
+
     # The evaluator host-evaluates callable fields at construction, so any
     # TimeDependent clock state left over from a previous march must reset
     # BEFORE setup.
@@ -143,20 +183,53 @@ def solve_system_2d(
         disc = discretize_mesh(mesh, system.unknown_forms, basis_cache, device)
         evaluator = SystemEvaluator(system.unknown_forms, compiled, disc)
 
-    if any(isinstance(f, TimeDependent) for f in compiled.fields):
+    # Time-dependent OPERATOR coefficients (interior-product fields): the
+    # march re-evaluates the field, re-assembles the frozen element matrices
+    # and refactorizes at every time level.  Steady solves have no time to
+    # evaluate at.
+    has_td_fields = any(isinstance(f, TimeDependent) for f in compiled.fields)
+    if has_td_fields and time_settings is None:
         raise ValueError(
             "TimeDependent interior-product (operator) fields require"
             " time_settings."
         )
 
     if system_settings.initial_conditions:
-        _, solution = compute_initial_solution(
+        initial_dual, solution = compute_initial_solution(
             disc, system, system_settings.initial_conditions
         )
         initial_solution = solution
     else:
+        initial_dual = None
         solution = np.zeros(disc.n_dofs)
         initial_solution = None
+
+    # Time-carry bookkeeping: the rows of the marched equations.
+    if time_settings is not None:
+        march_indices = tuple(
+            sorted(
+                system.weight_forms.index(form)
+                for form in time_settings.time_march_relations
+            )
+        )
+        time_carry_index_array = np.concatenate(
+            [
+                find_time_carry_indices(
+                    march_indices,
+                    system.unknown_forms,
+                    *(int(v) for v in disc.element_orders[i]),
+                )
+                + disc.element_offsets[i]
+                for i in range(disc.n_leaves)
+            ]
+        )
+        if initial_dual is not None:
+            old_solution_carry = initial_dual[time_carry_index_array]
+        else:
+            old_solution_carry = np.zeros(time_carry_index_array.size)
+    else:
+        time_carry_index_array = None
+        old_solution_carry = None
 
     with tracer.stage("assembly+constraints"):
         forcing, matrices, lagrange_mat, lagrange_vec = compute_linear_system(
@@ -172,62 +245,247 @@ def solve_system_2d(
     if lagrange_mat is not None:
         explicit_vec = np.concatenate((forcing, lagrange_vec))
 
+    time_carry_term = None
+    if time_settings is not None:
+        if initial_solution is not None:
+            # Consistent trapezoidal start: carry_0 = F_0 - A u_0 (the
+            # reference uses F_0 regardless of the initial state, which
+            # injects an O(dt) transient on the first step when u_0 != 0).
+            # residual_value includes the marched 2/dt mass term, which
+            # equals 2/dt * dual(u_0) on the carry rows, so it is added back.
+            spatial = explicit_vec[: disc.n_dofs] - evaluator.residual_value(solution)
+            time_carry_term = (
+                spatial[time_carry_index_array]
+                + 2.0 / time_settings.dt * old_solution_carry
+            )
+        else:
+            time_carry_term = explicit_vec[time_carry_index_array]
+
+    n_lagrange = int(lagrange_vec.size)
     t_factor = time.perf_counter()
-    if solver_settings.linear_solver == "direct":
-        solver = FrozenSaddleSolver(
-            evaluator.matrices_per_leaf(matrices), lagrange_mat
-        )
-    elif solver_settings.linear_solver == "dense":
-        from mfv2d_torch.solver.iterative import DenseSaddleSolver
-
-        solver = DenseSaddleSolver(disc, matrices, lagrange_mat)
-    else:
-        from mfv2d_torch.solver.iterative import IterativeSaddleSolver
-
-        solver = IterativeSaddleSolver(
-            disc,
-            matrices,
-            lagrange_mat,
-            ConvergenceSettings(
-                maximum_iterations=max(
-                    200, 4 * (disc.n_dofs + int(lagrange_vec.size))
-                ),
-                absolute_tolerance=solver_settings.convergence.absolute_tolerance
-                * 1e-3,
-                relative_tolerance=1e-12,
-            ),
-            method=solver_settings.linear_solver,
-        )
+    solver = _make_solver(
+        solver_settings, disc, evaluator, matrices, lagrange_mat, n_lagrange
+    )
     tracer.add("factorize", time.perf_counter() - t_factor)
 
     t_solve = time.perf_counter()
     global_lagrange = np.zeros_like(lagrange_vec)
     max_mag = float(np.abs(explicit_vec).max())
     conv = solver_settings.convergence
+    max_iterations = conv.maximum_iterations
+    relax = solver_settings.relaxation
+    atol = conv.absolute_tolerance
+    rtol = conv.relative_tolerance
+    newton = solver_settings.method == "newton"
 
     grid = reconstruct_mesh_from_solution(disc, recon_order, solution)
     grid.field_data["time"] = np.array([0.0])
     resulting_grids: list[ReconstructedGrid] = [grid]
 
-    solution, global_lagrange, iter_cnt, all_residuals = non_linear_solve_run(
-        conv.maximum_iterations,
-        solver_settings.relaxation,
-        conv.absolute_tolerance,
-        conv.relative_tolerance,
-        print_residual,
-        evaluator,
-        explicit_vec,
-        solution,
-        global_lagrange,
-        max_mag,
-        solver,
-        lagrange_mat,
-        return_all_residuals=True,
-        anderson_m=solver_settings.anderson_m,
+    # The dense solver runs its loops on the device (solver/fused.py) unless
+    # something forces a host loop: per-iteration output, or a march whose
+    # boundary values, forcing or operator change with time.
+    fused = (
+        solver_settings.linear_solver == "dense"
+        and not print_residual
+        and not has_unsteady_bcs
+        and not has_td_rhs
+        and not has_td_fields
     )
-    resulting_grids.append(
-        reconstruct_mesh_from_solution(disc, recon_order, solution)
-    )
+    linear = compiled.rhs_blocks is None and compiled.nonlin_blocks is None
+    if time_settings is not None and fused:
+        from mfv2d_torch.solver import fused as fused_loops
+
+        nt = time_settings.nt
+        dt = time_settings.dt
+        if linear:
+            # Linear march: one device solve per step.
+            us, sample_steps, global_lagrange = fused_loops.fused_linear_time_march(
+                disc, matrices, lagrange_mat, explicit_vec, time_carry_index_array,
+                solution, old_solution_carry, np.asarray(time_carry_term), dt, nt,
+                time_settings.sample_rate,
+            )
+            changes = np.zeros(nt)
+            iters = np.ones(nt, np.uint32)
+        else:
+            march, extra = (
+                (fused_loops.fused_newton_time_march, {})
+                if newton
+                else (
+                    fused_loops.fused_nonlinear_time_march,
+                    {"anderson_m": solver_settings.anderson_m},
+                )
+            )
+            us, sample_steps, global_lagrange, iters, changes = march(
+                disc, evaluator, matrices, lagrange_mat, explicit_vec,
+                time_carry_index_array, solution, old_solution_carry,
+                np.asarray(time_carry_term), dt, nt, max_iterations, relax, atol,
+                rtol, max_mag, time_settings.sample_rate, **extra,
+            )
+        for s_i, time_index in enumerate(sample_steps):
+            grid = reconstruct_mesh_from_solution(disc, recon_order, us[s_i])
+            grid.field_data["time"] = np.array([(int(time_index) + 1) * dt])
+            resulting_grids.append(grid)
+        solution = us[-1]
+    elif time_settings is not None:
+        nt = time_settings.nt
+        dt = time_settings.dt
+        changes = np.zeros(nt)
+        iters = np.zeros(nt, np.uint32)
+        rebuild_each_step = has_unsteady_bcs or has_td_rhs
+        pure_forcing = (
+            compute_forcing_vector(disc, system)
+            if (has_unsteady_bcs and not has_td_rhs)
+            else None
+        )
+        for time_index in range(nt):
+            t_next = (time_index + 1) * dt
+            if has_td_fields:
+                # TimeDependent OPERATOR fields: re-evaluate the field at the
+                # new time level, re-assemble the frozen element matrices,
+                # forcing and constraint values, and refactorize.
+                TimeDependent.current_time = t_next
+                evaluator.refresh_static_fields()
+                bcs_t = (
+                    freeze_unsteady_boundary_conditions(
+                        system_settings.boundary_conditions or [], t_next
+                    )
+                    if has_unsteady_bcs
+                    else (boundary_conditions or [])
+                )
+                with tracer.stage("assembly+constraints"):
+                    forcing, matrices, _, lagrange_vec_t = compute_linear_system(
+                        disc, system, evaluator, constrained_forms, bcs_t, solution
+                    )
+                explicit_vec = (
+                    np.concatenate((forcing, lagrange_vec_t))
+                    if lagrange_mat is not None
+                    else forcing
+                )
+                max_mag = float(np.abs(explicit_vec).max())
+                t_refactor = time.perf_counter()
+                solver = _make_solver(
+                    solver_settings, disc, evaluator, matrices, lagrange_mat, n_lagrange
+                )
+                tracer.add("factorize", time.perf_counter() - t_refactor)
+            elif rebuild_each_step and (time_index > 0 or has_td_rhs):
+                # Re-evaluate time-dependent boundary values / forcing at the
+                # new time level; the constraint matrix itself is
+                # time-independent.
+                from mfv2d_torch.continuity import add_system_constraints
+
+                if has_td_rhs:
+                    TimeDependent.current_time = t_next
+                frozen = freeze_unsteady_boundary_conditions(
+                    system_settings.boundary_conditions or [], t_next
+                )
+                forcing_t = (
+                    compute_forcing_vector(disc, system)
+                    if has_td_rhs
+                    else pure_forcing.copy()
+                )
+                vec_views = [
+                    forcing_t[disc.element_offsets[i] : disc.element_offsets[i + 1]]
+                    for i in range(disc.n_leaves)
+                ]
+                _, lagrange_vec_t = add_system_constraints(
+                    system,
+                    mesh,
+                    basis_cache,
+                    constrained_forms,
+                    frozen,
+                    disc.leaf_indices,
+                    disc.element_offsets,
+                    vec_views,
+                )
+                explicit_vec = (
+                    np.concatenate((forcing_t, lagrange_vec_t))
+                    if lagrange_mat is not None
+                    else forcing_t
+                )
+                max_mag = float(np.abs(explicit_vec).max())
+            current_carry = 2 / dt * old_solution_carry + time_carry_term
+
+            solution, global_lagrange, iter_cnt, max_residual = non_linear_solve_run(
+                max_iterations,
+                relax,
+                atol,
+                rtol,
+                print_residual,
+                evaluator,
+                explicit_vec,
+                solution,
+                global_lagrange,
+                max_mag,
+                solver,
+                lagrange_mat,
+                anderson_m=solver_settings.anderson_m,
+                time_carry_index_array=time_carry_index_array,
+                time_carry_term=current_carry,
+                newton=newton,
+            )
+            changes[time_index] = float(max_residual)
+            iters[time_index] = iter_cnt
+
+            projected = compute_element_dual_from_primal_global(disc, solution)
+            new_solution_carry = projected[time_carry_index_array]
+            time_carry_term = (
+                2 / dt * (new_solution_carry - old_solution_carry) - time_carry_term
+            )
+            old_solution_carry = new_solution_carry
+
+            if (time_index % time_settings.sample_rate) == 0 or time_index + 1 == nt:
+                grid = reconstruct_mesh_from_solution(disc, recon_order, solution)
+                grid.field_data["time"] = np.array([t_next])
+                resulting_grids.append(grid)
+
+            if print_residual:
+                print(
+                    f"Time step {time_index:d} finished in {iter_cnt:d} iterations"
+                    f" with residual of {float(max_residual):.5e}"
+                )
+    else:
+        if fused:
+            # Steady solve on the device: Picard with the frozen LU, or
+            # exact Newton with the Jacobian saddle refactorized each
+            # iteration.
+            from mfv2d_torch.solver import fused as fused_loops
+
+            loop, extra = (
+                (fused_loops.fused_newton_solve, {})
+                if newton
+                else (
+                    fused_loops.fused_picard_solve,
+                    {"anderson_m": solver_settings.anderson_m},
+                )
+            )
+            solution, global_lagrange, iter_cnt, all_residuals, _ = loop(
+                disc, evaluator, matrices, lagrange_mat, explicit_vec, solution,
+                global_lagrange, max_iterations, relax, atol, rtol, max_mag, **extra,
+            )
+        else:
+            solution, global_lagrange, iter_cnt, all_residuals = non_linear_solve_run(
+                max_iterations,
+                relax,
+                atol,
+                rtol,
+                print_residual,
+                evaluator,
+                explicit_vec,
+                solution,
+                global_lagrange,
+                max_mag,
+                solver,
+                lagrange_mat,
+                return_all_residuals=True,
+                anderson_m=solver_settings.anderson_m,
+                newton=newton,
+            )
+        changes = np.asarray(all_residuals)[:iter_cnt]
+        iters = np.array((iter_cnt,), np.uint32)
+        resulting_grids.append(
+            reconstruct_mesh_from_solution(disc, recon_order, solution)
+        )
     tracer.add("solve+reconstruct", time.perf_counter() - t_solve)
 
     orders, counts = np.unique(disc.element_orders, axis=0, return_counts=True)
@@ -236,13 +494,52 @@ def solve_system_2d(
             (int(o[0]), int(o[1])): int(c) for o, c in zip(orders, counts)
         },
         n_total_dofs=explicit_vec.size,
-        n_lagrange=int(lagrange_vec.size),
+        n_lagrange=n_lagrange,
         n_elems=mesh.element_count,
         n_leaves=mesh.leaf_count,
         n_leaf_dofs=disc.n_dofs,
-        iter_history=np.array((iter_cnt,), np.uint32),
-        residual_history=np.asarray(all_residuals)[:iter_cnt],
+        iter_history=iters,
+        residual_history=np.asarray(changes),
     )
     if tracer.enabled:
         print(tracer.report())
     return tuple(resulting_grids), stats, mesh
+
+
+def update_system_for_time_march(
+    time_settings: TimeSettings, system: KFormSystem
+) -> KFormSystem:
+    """Add the 2/dt <w, u> terms of the trapezoidal rule to marched equations."""
+    for w, u in time_settings.time_march_relations.items():
+        if u not in system.unknown_forms:
+            raise ValueError(f"Unknown form {u} is not in the system.")
+        if w not in system.weight_forms:
+            raise ValueError(f"Weight form {w} is not in the system.")
+        if u.order != w.order:
+            raise ValueError(
+                f"Forms {u} and {w} in the time march relation can not be used, as"
+                f" they have differing orders ({u.order} vs {w.order})."
+            )
+
+    time_march_indices = tuple(
+        (
+            system.unknown_forms.index(time_settings.time_march_relations[eq.weight])
+            if eq.weight in time_settings.time_march_relations
+            else None
+        )
+        for eq in system.equations
+    )
+
+    new_equations: list[KEquation] = []
+    for eq, m_idx in zip(system.equations, time_march_indices):
+        if m_idx is None:
+            new_equations.append(eq)
+        else:
+            new_equations.append(
+                eq.left
+                + 2
+                / time_settings.dt
+                * (system.weight_forms[m_idx] @ system.unknown_forms.get_form(m_idx))
+                == eq.right
+            )
+    return KFormSystem(*new_equations)

@@ -14,9 +14,8 @@ from dataclasses import dataclass, field
 
 import numpy as np
 import numpy.typing as npt
-import torch
 
-from mfv2d_torch.evaluation import ElementBatch
+from mfv2d_torch.evaluation import ElementBatch, check_device
 from mfv2d_torch.mesh.quadtree import Mesh
 from mfv2d_torch.ops.basis import FemCache
 from mfv2d_torch.system import ElementFormSpecification
@@ -52,18 +51,6 @@ class Discretization:
     @property
     def n_dofs(self) -> int:
         return int(self.element_offsets[-1])
-
-
-def check_device(device) -> torch.device:
-    """``device`` as a ``torch.device``.  A CUDA device must be present: the
-    port never falls back to the CPU unless the caller asks for it."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "mfv2d_torch runs on the CUDA device by default and none is"
-            ' available; pass device="cpu" to run on the CPU.'
-        )
-    return device
 
 
 def discretize_mesh(

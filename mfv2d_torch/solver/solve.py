@@ -20,7 +20,7 @@ import numpy.typing as npt
 import torch
 
 from mfv2d_torch.boundary import BoundaryCondition2DSteady
-from mfv2d_torch.compiler import CompiledSystem, SystemBlocks
+from mfv2d_torch.compiler import CompiledSystem, MassMat, SystemBlocks
 from mfv2d_torch.continuity import add_system_constraints
 from mfv2d_torch.evaluation import (
     apply_mass,
@@ -64,14 +64,16 @@ class SolverSettings:
     LU of the whole saddle matrix on the device), "schur_direct" (static
     condensation: assembled trace Schur complement, sparse-factored once),
     or the matrix-free paths "schur", "pcg", "gmres" on the device (see
-    mfv2d_torch.solver.iterative).  ``method`` is "picard"; Newton is not
-    ported yet and raises.
+    mfv2d_torch.solver.iterative).
     """
 
     convergence: ConvergenceSettings = ConvergenceSettings()
     relaxation: float = 1.0
     linear_solver: str = "direct"
     method: str = "picard"
+    """Nonlinear iteration: "picard" (frozen operator, the reference scheme)
+    or "newton" (exact element Jacobians by forward-mode differentiation,
+    rebuilt every iteration)."""
     device_mesh: object | None = None
     anderson_m: int = 0
     """Anderson acceleration window for the Picard loop (0 = off, the
@@ -172,6 +174,12 @@ def compute_forcing_vector(disc: Discretization, system: KFormSystem) -> np.ndar
 # ---------------------------------------------------------------------------
 
 
+# Bytes of one chunk of Jacobian tangents, counted as E N^2 per tangent: an
+# interior-product matrix of a tangent is at most [E, N, N], and the chunk
+# bounds how many of them are alive at once.
+_JACOBIAN_CHUNK_BYTES = 1 << 30
+
+
 def _to_device(values: np.ndarray, bucket: OrderBucket) -> torch.Tensor:
     return torch.as_tensor(values, dtype=torch.float64, device=bucket.batch.device)
 
@@ -198,6 +206,19 @@ class SystemEvaluator:
             for bucket in disc.buckets
         ]
 
+    def refresh_static_fields(self) -> None:
+        """Re-evaluate callable (static) interior-product fields.
+
+        Serves TimeDependent OPERATOR fields: the march sets
+        ``TimeDependent.current_time`` to the new time level and calls this
+        before re-assembling, so the advecting field re-evaluates at that
+        time.  Every consumer reads ``self._static_fields`` at call time.
+        """
+        self._static_fields = [
+            evaluate_static_fields(bucket.batch, self.compiled.fields)
+            for bucket in self.disc.buckets
+        ]
+
     def element_matrices(
         self, which: SystemBlocks, solution: np.ndarray | None = None
     ) -> list[np.ndarray]:
@@ -219,36 +240,75 @@ class SystemEvaluator:
             out.append(mats.cpu().numpy())
         return out
 
+    def bucket_residual(self, i_bucket: int, dofs: torch.Tensor) -> torch.Tensor:
+        """Element-wise LHS(u) - RHS(u) of one bucket: ``[E, N]`` on its device."""
+        batch = self.disc.buckets[i_bucket].batch
+        statics = self._static_fields[i_bucket]
+        val = compute_element_vectors(
+            self.form_spec, self.compiled.lhs_blocks, batch, dofs, static_fields=statics
+        )
+        if self.compiled.rhs_blocks is not None:
+            val = val - compute_element_vectors(
+                self.form_spec, self.compiled.rhs_blocks, batch, dofs, static_fields=statics
+            )
+        return val
+
     def residual_value(self, solution: np.ndarray) -> np.ndarray:
         """Element-wise LHS(u) - RHS(u) evaluation, scattered globally."""
         out = np.zeros(self.disc.n_dofs)
         for i, bucket in enumerate(self.disc.buckets):
             dofs = _to_device(solution[bucket.gather], bucket)
-            statics = self._static_fields[i]
-            val = compute_element_vectors(
-                self.form_spec,
-                self.compiled.lhs_blocks,
-                bucket.batch,
-                dofs,
-                static_fields=statics,
-            )
-            if self.compiled.rhs_blocks is not None:
-                val = val - compute_element_vectors(
-                    self.form_spec,
-                    self.compiled.rhs_blocks,
-                    bucket.batch,
-                    dofs,
-                    static_fields=statics,
-                )
-            out[bucket.gather] = val.cpu().numpy()
+            out[bucket.gather] = self.bucket_residual(i, dofs).cpu().numpy()
         return out
 
+    def _warm_masses(self, i_bucket: int) -> None:
+        """Compute every mass (or inverse) the residual's blocks read, so a
+        transformed residual only reads the memo and launches no kernel."""
+        batch = self.disc.buckets[i_bucket].batch
+        for blocks in (self.compiled.lhs_blocks, self.compiled.rhs_blocks):
+            for row in blocks or ():
+                for ops in row:
+                    for op in ops or ():
+                        if isinstance(op, MassMat):
+                            batch.mass(op.order, op.inv)
+
+    def bucket_jacobians(self, i_bucket: int, dofs: torch.Tensor) -> torch.Tensor:
+        """Exact per-element Jacobians ``d(LHS - RHS)/du`` of one bucket,
+        ``[E, N, N]`` on its device.
+
+        Residuals are element-local, so a forward-mode tangent that is
+        ``e_j`` in every element gives column ``j`` of every element's
+        Jacobian at once: a vmap over the N one-hot tangents of one jvp of
+        the whole bucket's residual.  The masses are computed first, outside
+        the transform, so the kernels run on plain tensors and the
+        derivative only reads their output.
+        """
+        self._warm_masses(i_bucket)
+        e, n = dofs.shape
+        chunk = max(1, min(n, _JACOBIAN_CHUNK_BYTES // (e * n * n * dofs.element_size())))
+
+        def column(tangent):
+            return torch.func.jvp(
+                lambda d: self.bucket_residual(i_bucket, d), (dofs,), (tangent.expand(e, n),)
+            )[1]
+
+        eye = torch.eye(n, dtype=dofs.dtype, device=dofs.device)
+        columns = torch.func.vmap(column, chunk_size=chunk)(eye)  # [j, E, i]
+        return columns.permute(1, 2, 0)
+
     def element_jacobians(self, solution: np.ndarray) -> list[np.ndarray]:
-        """Exact per-element Jacobians d(LHS - RHS)/du (Newton)."""
-        raise NotImplementedError(
-            "Exact element Jacobians (torch.func) are not ported yet: ROADMAP"
-            " 'Modules still to port', item 4 (Newton on the steady path)."
-        )
+        """Exact per-element Jacobians d(LHS - RHS)/du per bucket (Newton).
+
+        The reference's Picard loop freezes the linear operator; the true
+        Newton operator additionally carries the derivative of the
+        solution-dependent interior-product fields.
+        """
+        return [
+            self.bucket_jacobians(i, _to_device(solution[bucket.gather], bucket))
+            .cpu()
+            .numpy()
+            for i, bucket in enumerate(self.disc.buckets)
+        ]
 
     def matrices_per_leaf(self, matrices: list[np.ndarray]) -> list[np.ndarray]:
         """Reorder per-bucket matrix batches into leaf order."""
@@ -319,6 +379,54 @@ class FrozenSaddleSolver:
         return np.asarray(self._decomp.solve(rhs), np.float64)
 
 
+def _preconditioned_newton_solve(
+    solver,
+    evaluator: SystemEvaluator,
+    jac_blocks: list[np.ndarray],
+    lagrange_mat,
+    residual: np.ndarray,
+    rel_tol: float,
+    max_inner: int = 60,
+) -> tuple[np.ndarray, bool]:
+    """Solve ``J d = residual`` with the frozen factorization as preconditioner.
+
+    Defect correction ``d += P^{-1}(residual - J d)`` converges at rate
+    ``||I - P^{-1} J||``; each sweep costs one batched element GEMV plus one
+    frozen solve, far below a sparse refactorization.  Returns
+    ``(d, converged)``; on stall the caller refactorizes.
+    """
+    disc = evaluator.disc
+    n = disc.n_dofs
+
+    def jac_apply(x: np.ndarray) -> np.ndarray:
+        u = x[:n]
+        out = np.zeros(n)
+        for blocks, bucket in zip(jac_blocks, disc.buckets):
+            g = bucket.gather
+            out[g] = np.einsum("eij,ej->ei", blocks, u[g], optimize=True)
+        if lagrange_mat is None:
+            return out
+        out = out + lagrange_mat.T @ x[n:]
+        return np.concatenate((out, lagrange_mat @ u))
+
+    r_norm = float(np.abs(residual).max())
+    if r_norm == 0.0:
+        return np.zeros_like(residual), True
+    d = solver.solve(residual)
+    prev = np.inf
+    for _ in range(max_inner):
+        s = residual - jac_apply(d)
+        s_norm = float(np.abs(s).max())
+        if s_norm <= rel_tol * r_norm:
+            return d, True
+        if s_norm >= 0.9 * prev:
+            # Not contracting: the frozen operator is too far from J.
+            return d, False
+        prev = s_norm
+        d = d + solver.solve(s)
+    return d, False
+
+
 def non_linear_solve_run(
     max_iterations: int,
     relax: float,
@@ -330,15 +438,21 @@ def non_linear_solve_run(
     solution: np.ndarray,
     global_lagrange: np.ndarray,
     max_mag: float,
-    solver: FrozenSaddleSolver,
+    solver,
     lagrange_mat: sp.csr_array | None,
     return_all_residuals: bool = False,
     anderson_m: int = 0,
+    *,
+    time_carry_index_array: np.ndarray | None = None,
+    time_carry_term: np.ndarray | None = None,
+    newton: bool = False,
 ):
     """Picard / defect-correction iteration (reference solve_system.py:354).
 
-    residual = forcing - (LHS(u) - RHS(u)) - G^T lambda; update = frozen-LU
-    solve of the residual.
+    residual = forcing (plus the time-march carry on its rows) - (LHS(u) -
+    RHS(u)) - G^T lambda; update = frozen solve of the residual.  With
+    ``newton`` every iteration after the first solves with the exact element
+    Jacobians at the iterate instead (see _preconditioned_newton_solve).
     """
     from mfv2d_torch.tracing import tracer
 
@@ -347,10 +461,13 @@ def non_linear_solve_run(
     # Anderson acceleration (type II) over the damped-Picard fixed point
     # x_{k+1} = x_k + relax * P^{-1} r(x_k): keep the last m (iterate,
     # step) pairs and extrapolate via a small least-squares problem.
-    use_aa = anderson_m > 0
+    # Exact-Newton steps don't need it (quadratic already).
+    use_aa = anderson_m > 0 and not newton
     aa_x: list[np.ndarray] = []
     aa_f: list[np.ndarray] = []
     base_vec = np.array(explicit_vec, copy=True)
+    if time_carry_term is not None:
+        base_vec[time_carry_index_array] += time_carry_term
     residuals = np.zeros(max_iterations)
     max_residual = 0.0
 
@@ -379,8 +496,26 @@ def non_linear_solve_run(
         if not (max_residual > atol and max_residual > max_mag * rtol):
             break
 
-        with tracer.stage("picard-solve"):
-            d_solution = solver.solve(residual)
+        if newton and iter_cnt > 0:
+            # Exact-Newton step without refactorizing: solve J_k d = r by
+            # defect correction preconditioned with the frozen initial
+            # factorization.  Falls back to a fresh host factorization of
+            # the Jacobian when the frozen preconditioner no longer
+            # contracts (the iterate drifted far).
+            with tracer.stage("newton-jacobian"):
+                jac_blocks = evaluator.element_jacobians(solution)
+            with tracer.stage("picard-solve"):
+                d_solution, ok = _preconditioned_newton_solve(
+                    solver, evaluator, jac_blocks, lagrange_mat, residual, rel_tol=1e-12
+                )
+                if not ok:
+                    solver = FrozenSaddleSolver(
+                        evaluator.matrices_per_leaf(jac_blocks), lagrange_mat
+                    )
+                    d_solution = solver.solve(residual)
+        else:
+            with tracer.stage("picard-solve"):
+                d_solution = solver.solve(residual)
         n_lag = global_lagrange.size
         if use_aa:
             x_k = (
@@ -430,8 +565,27 @@ def non_linear_solve_run(
 
 
 # ---------------------------------------------------------------------------
-# Initial conditions
+# DoF conversions and time-march helpers
 # ---------------------------------------------------------------------------
+
+
+def compute_element_dual_from_primal_global(
+    disc: Discretization, primal: np.ndarray
+) -> np.ndarray:
+    """Apply the per-form mass matrices to the whole solution vector."""
+    out = np.zeros_like(primal)
+    for bucket in disc.buckets:
+        out[bucket.gather] = (
+            apply_mass(
+                disc.form_spec,
+                bucket.batch,
+                _to_device(primal[bucket.gather], bucket),
+                inverse=False,
+            )
+            .cpu()
+            .numpy()
+        )
+    return out
 
 
 def compute_element_primal_from_dual_global(
@@ -476,6 +630,23 @@ def compute_initial_solution(
         dual[bucket.gather] = np.concatenate(parts, axis=1)
     primal = compute_element_primal_from_dual_global(disc, dual)
     return dual, primal
+
+
+def find_time_carry_indices(
+    unknowns: Sequence[int],
+    form_specs: ElementFormSpecification,
+    order_1: int,
+    order_2: int,
+) -> npt.NDArray[np.uint32]:
+    """DoF indices (within one element) carried by the time march."""
+    output: list[npt.NDArray[np.uint32]] = []
+    for iu, u in enumerate(unknowns):
+        if iu > 0 and unknowns[iu - 1] >= u:
+            raise ValueError("Unknowns must be sorted.")
+        offset = form_specs.form_offset(u, order_1, order_2)
+        size = form_specs.form_size(u, order_1, order_2)
+        output.append(offset + np.arange(size, dtype=np.uint32))
+    return np.concatenate(output, dtype=np.uint32)
 
 
 # ---------------------------------------------------------------------------

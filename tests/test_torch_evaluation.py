@@ -89,7 +89,7 @@ def _setup(name):
     e = 5
     corners = np.tile(BASE, (e, 1, 1)) + 0.08 * rng.normal(size=(e, 4, 2))
     jbatch = jevaluation.ElementBatch(JFemCache(3).get_basis2d(*ORDERS), corners)
-    tbatch = tevaluation.ElementBatch(TFemCache(3).get_basis2d(*ORDERS), corners)
+    tbatch = tevaluation.ElementBatch(TFemCache(3).get_basis2d(*ORDERS), corners, "cpu")
     n = jsys.unknown_forms.total_size(*ORDERS)
     dofs = rng.normal(size=(e, n))
     jstat = jevaluation.evaluate_static_fields(jbatch, jcomp.fields)

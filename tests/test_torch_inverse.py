@@ -421,7 +421,7 @@ def test_mass_inverse_matches_jax(orders):
     rng = np.random.default_rng(5)
     corners = np.tile(BASE, (7, 1, 1)) + 0.08 * rng.normal(size=(7, 4, 2))
     jbatch = jev.ElementBatch(FemCache(2).get_basis2d(*orders), corners)
-    tbatch = tev.ElementBatch(TFemCache(2).get_basis2d(*orders), corners)
+    tbatch = tev.ElementBatch(TFemCache(2).get_basis2d(*orders), corners, "cpu")
     for k in (0, 1, 2):
         mass = np.asarray(jbatch.mass(JOrder(k + 1), False))
         ref = np.asarray(jev._mass_inverse(jnp.asarray(mass)))
@@ -454,7 +454,7 @@ def test_cpu_wrapper_is_the_plain_version_and_counts_nothing():
     a = torch.tensor(saddle_blocks(5, 10, 3, seed=6))
     before = kernel.launches
     assert torch.equal(kernel.gj_inverse(a), tprec.gj_inverse_plain(a))
-    batch = tev.ElementBatch(TFemCache(2).get_basis2d(3, 3), BASE[None])
+    batch = tev.ElementBatch(TFemCache(2).get_basis2d(3, 3), BASE[None], "cpu")
     batch.mass(TOrder.FORM_ORDER_1, True)
     assert kernel.launches == before
 

@@ -61,7 +61,7 @@ def _shared_geometry(orders, corners, order_difference=2):
     jtb = jmass.tensor_basis(JFemCache(order_difference).get_basis2d(*orders))
     ttb = tmass.tensor_basis(TFemCache(order_difference).get_basis2d(*orders))
     jjac = jmass.batch_jacobian(jtb, corners)
-    tjac = jacobian_terms_from_numpy(*(np.asarray(v) for v in jjac))
+    tjac = jacobian_terms_from_numpy(*(np.asarray(v) for v in jjac), device="cpu")
     return jtb, jjac, ttb, tjac
 
 
@@ -151,13 +151,13 @@ def test_plain_mass_edge_matches_pallas(orders):
 @pytest.mark.parametrize("orders", [(3, 3), (3, 5)])
 @pytest.mark.parametrize("k", [0, 1, 2])
 def test_mass_matrices_match_golden(qi, orders, k):
-    batch = ElementBatch(TFemCache(2).get_basis2d(*orders), FIX["quads"][qi][None])
+    batch = ElementBatch(TFemCache(2).get_basis2d(*orders), FIX["quads"][qi][None], "cpu")
     mine = batch.mass(UnknownFormOrder(k + 1), False)[0].numpy()
     assert rel(mine, FIX[f"imass{k}_q{qi}_p{orders[0]}{orders[1]}"]) < 1e-11
 
 
 def test_inverse_mass():
-    batch = ElementBatch(TFemCache(2).get_basis2d(3, 2), _corners(3, seed=11))
+    batch = ElementBatch(TFemCache(2).get_basis2d(3, 2), _corners(3, seed=11), "cpu")
     for order in UnknownFormOrder:
         m = batch.mass(order, False)
         eye = torch.eye(m.shape[-1], dtype=torch.float64)
@@ -170,7 +170,7 @@ def test_cpu_wrapper_is_the_plain_version_and_counts_nothing():
     out = kernel.mass_edge(ttb, tjac)
     assert kernel.launches == before
     assert torch.equal(out, tmass.mass_edge(ttb, tjac))
-    batch = ElementBatch(TFemCache(2).get_basis2d(4, 4), _corners(5, seed=2))
+    batch = ElementBatch(TFemCache(2).get_basis2d(4, 4), _corners(5, seed=2), "cpu")
     batch.mass(UnknownFormOrder.FORM_ORDER_1, False)
     assert kernel.launches == before
 

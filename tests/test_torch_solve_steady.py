@@ -193,14 +193,11 @@ def test_unported_options_raise():
     mesh, settings, solver = _mixed_poisson(tf, tpoisson)
     model = tflow.navier_stokes(10.0)
     vms = tf.VMSSettings(model.system, model.system, 1, tf.ConvergenceSettings())
-    time_settings = tf.TimeSettings(0.1, 2, {model.velocity.weight: model.velocity})
     bad_calls = [
-        dict(time_settings=time_settings),
         dict(refinement_settings=object()),
         dict(vms_settings=vms),
         dict(checkpoint_settings=object()),
         dict(solver_settings=tf.SolverSettings(device_mesh=object())),
-        dict(solver_settings=tf.SolverSettings(method="newton")),
     ]
     for kw in bad_calls:
         with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -210,6 +207,17 @@ def test_unported_options_raise():
             mesh, settings, tf.SolverSettings(linear_solver="no-such-solver"), device="cpu"
         )
 
+    # Newton and time marches are ported: they solve.
+    u = tpoisson.mixed_poisson().u
+    time_settings = tf.TimeSettings(0.1, 2, {u.weight: u})
+    grids, stats, _ = tf.solve_system_2d(
+        mesh, settings, solver, time_settings=time_settings, device="cpu"
+    )
+    assert len(grids) == 3 and stats.iter_history.shape == (2,)
+    newton = tf.SolverSettings(solver.convergence, method="newton")
+    grids, stats, _ = tf.solve_system_2d(mesh, settings, newton, device="cpu")
+    assert len(grids) == 2 and int(stats.iter_history[0]) >= 1
+
     from mfv2d_torch.compiler import CompiledSystem
     from mfv2d_torch.ops.basis import FemCache
     from mfv2d_torch.solver.discretization import discretize_mesh
@@ -217,17 +225,21 @@ def test_unported_options_raise():
 
     disc = discretize_mesh(mesh, settings.system.unknown_forms, FemCache(3), device="cpu")
     evaluator = SystemEvaluator(disc.form_spec, CompiledSystem(settings.system), disc)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        evaluator.element_jacobians(np.zeros(disc.n_dofs))
+    (jac,) = evaluator.element_jacobians(np.zeros(disc.n_dofs))
+    n = disc.form_spec.total_size(3, 3)
+    assert jac.shape == (16, n, n)
 
 
 def test_entry_points_default_to_the_card(monkeypatch):
-    """Both entry points take the CUDA device unless the caller asks for the
-    CPU, and without a CUDA device they raise instead of falling back."""
+    """The entry points and the public constructors take the CUDA device
+    unless the caller asks for the CPU, and without a CUDA device they raise
+    instead of falling back."""
+    from mfv2d_torch.evaluation import ElementBatch
+    from mfv2d_torch.interop import jacobian_terms_from_numpy
     from mfv2d_torch.ops.basis import FemCache
     from mfv2d_torch.solver.discretization import discretize_mesh
 
-    for fn in (tf.solve_system_2d, discretize_mesh):
+    for fn in (tf.solve_system_2d, discretize_mesh, ElementBatch, jacobian_terms_from_numpy):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
     mesh, settings, _ = _mixed_poisson(tf, tpoisson)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -235,3 +247,7 @@ def test_entry_points_default_to_the_card(monkeypatch):
         tf.solve_system_2d(mesh, settings)
     with pytest.raises(RuntimeError, match='device="cpu"'):
         discretize_mesh(mesh, settings.system.unknown_forms, FemCache(3))
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        ElementBatch(FemCache(3).get_basis2d(2, 2), np.eye(4, 2))
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        jacobian_terms_from_numpy(*np.ones((5, 1, 4)))
