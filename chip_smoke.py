@@ -18,24 +18,28 @@ Phases (each ends in torch.cuda.synchronize(); any failure exits non-zero):
    has a stack frame
 2. M1 kernel vs its plain PyTorch version on the card, f64 and f32, at
    orders on both sides of the 176 KB at which the basis table stops being
-   resident in shared memory and is streamed (to p=12, and anisotropic),
+   resident in shared memory and is streamed (to p=16, and anisotropic),
    and their median times beside the bound and one einsum over the stacked
-   table and the metric (the library call) at p=4 and p=8 (E=4096) and
-   p=10 (E=1024) in f64: a call alone, and per call of ten back to back
+   table and the metric (the library call) at p=4 and p=8 (E=4096),
+   p=10 (E=1024) and p=16 (E=16) in f64: a call alone, and per call of
+   ten back to back
 3. the golden 4x4 p=3 mixed-Poisson solution on the card, through the
    direct, static-condensation, dense and Schur CG solvers
 4. the main path at size: steady mixed Poisson, 64x64 mesh, p=4
 5. nonlinear Picard: steady Navier-Stokes Re=10, 16x16 mesh, p=5
 6. batched-inverse kernel vs its plain version on the card: saddle
    matrices and real element blocks, f64 and f32, every route that n
-   chooses (register up to 64, blocked to 218, streamed to 1024, global at
-   1056), a singular batch on the register, blocked and streamed routes,
-   and median times beside torch.linalg.inv and the bound on every route
-   but the global one (each must beat it): n=56 (E=4096), the phase-9
-   blocks (n=121, E=256), n=208 (E=4096), n=289 and n=460 (E=1000), and
-   phase 10's Poisson blocks (n=320, E=256) and Navier-Stokes blocks
-   (n=441, E=16; also ten calls back to back); the kernels one call
-   launches, counted under torch.profiler
+   chooses (register up to 64, blocked to 218, streamed above: one panel
+   block to 1024, a cluster of them beyond, to n=2401), the cluster of 8
+   blocks at n=3585 and 4096 and its rows spilled to L2 at n=4097 and
+   5000 (one matrix each, with their times), a singular batch on the register, blocked and streamed routes and
+   on the clustered panel, and median times beside torch.linalg.inv and
+   the bound (each must beat torch.linalg.inv): n=56 (E=4096), the
+   phase-9 blocks (n=121, E=256), n=208 (E=4096), n=289 and n=460
+   (E=1000), phase 10's Poisson blocks (n=320, E=256) and Navier-Stokes
+   blocks (n=441, E=16), n=1056 and 1089 (E=16) and n=2401 (E=4); where
+   a call of E <= 16 takes under 5 ms also ten calls back to back; the
+   kernels one call launches, counted under torch.profiler
 7. Schur CG at size: mixed Poisson 64x64 p=4, linear_solver="schur"
 8. static condensation at size: mixed Poisson 64x64 p=8,
    linear_solver="schur_direct", then the same solve again, warm, under
@@ -56,6 +60,9 @@ Phases (each ends in torch.cuda.synchronize(); any failure exits non-zero):
    dense linear march of the JAX bench's heat cell (16x16, p=4, 64 steps);
    and the lid-driven cavity on 16x16, p=4 by the fused dense Picard march
    and the fused dense Newton march, with iterations per step
+13. the inverse's clustered panel on a model: steady Navier-Stokes Re=10,
+   4x4 mesh, p=16, linear_solver="schur_direct" (element blocks n=1089),
+   its Picard iterations against the JAX package's
 
 The line before the last is the kernel report (JSON), the last line the
 device summary (JSON).
@@ -78,31 +85,40 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 BASE = np.array([(-1.0, -1.0), (1.0, -1.0), (1.0, 1.0), (-1.0, 1.0)])
-# The orders and batches that phases 3 to 10 give the kernel ((3, 3) at 16,
-# (4, 4) and (8, 8) at 4096, (5, 5) at 256, (10, 10) at 256 and 16) among them.
+# The orders and batches that phases 3 to 13 give the kernel ((3, 3) at 16,
+# (4, 4) and (8, 8) at 4096, (5, 5) at 256, (10, 10) at 256 and 16, (16, 16)
+# at 16) among them.
 KERNEL_ORDERS = [
-    (2, 2), (3, 3), (4, 4), (3, 5), (5, 5), (8, 8), (9, 9), (10, 10), (12, 12), (9, 3)
+    (2, 2), (3, 3), (4, 4), (3, 5), (5, 5), (8, 8), (9, 9), (10, 10), (12, 12), (16, 16),
+    (9, 3),
 ]
 KERNEL_SIZES = [1, 16, 256, 1000, 4096]
 # Above p=8 the plain version's intermediates grow like p^4 per element.
 KERNEL_MAX_BATCH_HIGH = 300
 # Timed M1 shapes (orders, E), f64, and the main path whose launches the
-# report puts beside each: the shape of phase 4, the shape of phase 8, and
-# phase 10's order at a batch that fills the card.
+# report puts beside each: the shape of phase 4, the shape of phase 8,
+# phase 10's order at a batch that fills the card, and the shape of phase 13.
 KERNEL_TIMED = [
     ((4, 4), 4096, "phase 4 (p=4, E=4096)"),
     ((8, 8), 4096, "phase 8 (p=8, E=4096)"),
     ((10, 10), 1024, "phase 10 (p=10, E=256 and E=16)"),
+    ((16, 16), 16, "phase 13 (p=16, E=16)"),
 ]
 KERNEL_TOL = {torch.float64: 1e-12, torch.float32: 1e-5}
 INVERSE_SIZES = [
-    1, 16, 32, 33, 56, 64, 65, 121, 168, 170, 208, 289, 441, 460, 625, 1024, 1056
+    1, 16, 32, 33, 56, 64, 65, 121, 168, 170, 208, 289, 441, 460, 625, 1024, 1056, 1089, 2401
 ]
 INVERSE_BATCHES = [1, 1000, 4096]
-INVERSE_MAX_BATCH = {289: 1000, 441: 1000, 460: 1000, 625: 256, 1024: 64, 1056: 16}
+# One matrix each, past the sizes above: the streamed panel over a cluster
+# of 8 blocks, then with its rows past 4,096 spilled to L2.
+INVERSE_LARGE = [3585, 4096, 4097, 5000]
+INVERSE_MAX_BATCH = {
+    289: 1000, 441: 1000, 460: 1000, 625: 256, 1024: 64, 1056: 16, 1089: 16, 2401: 4
+}
 # Timed inverse cases, each on the route its n takes: the p=4 blocks'
 # size (phase 7), the real phase-9 batch, the p=8 blocks' sizes, n=460,
-# and the real phase-10 batches.
+# the real phase-10 batches, and the sizes of the clustered panel: n=1056,
+# the p=16 Navier-Stokes blocks' n=1089 (phase 13) and n=2401.
 INVERSE_TIMED = [
     "saddle n=56 E=4096",
     "phase-9 blocks n=121 E=256",
@@ -112,12 +128,14 @@ INVERSE_TIMED = [
     "phase-10 Poisson blocks n=320 E=256",
     "phase-10 blocks n=441 E=16",
     "saddle n=1056 E=16",
+    "saddle n=1089 E=16",
+    "saddle n=2401 E=4",
 ]
-# The route each timed n takes in f64; every timed case but the global
-# route's (timed beside it, still to be redesigned) must beat
+# The route each timed n takes in f64; every timed case must beat
 # torch.linalg.inv.
 INVERSE_ROUTES = {56: "register", 121: "blocked", 208: "blocked", 289: "streamed",
-                  320: "streamed", 441: "streamed", 460: "streamed", 1056: "global"}
+                  320: "streamed", 441: "streamed", 460: "streamed", 1056: "streamed",
+                  1089: "streamed", 2401: "streamed"}
 INVERSE_TOL = {torch.float64: 1e-10, torch.float32: 1e-3}
 # The H100 SXM's HBM rate and FP64 peak (tensor cores; NVIDIA data sheet):
 # the bound of a kernel is the larger of its compulsory bytes and its
@@ -552,14 +570,21 @@ def phase6_inverse_vs_plain() -> dict:
 
     cases = {}
     for n in INVERSE_SIZES:
-        pool = _saddle_pool(n, 16, seed=n)
-        cond = max(np.linalg.cond(k) for k in pool)
-        route = gj_inverse.route(n, torch.float64)
+        pool = torch.tensor(
+            _saddle_pool(n, min(16, INVERSE_MAX_BATCH.get(n, 16)), seed=n), device="cuda"
+        )
+        cond = float(torch.linalg.cond(pool).max())
+        plan = gj_inverse.launch_plan(n, torch.float64)
         route32 = gj_inverse.route(n, torch.float32)
-        print(f"  saddle n={n:3d}: max cond {cond:.3e}, route f64 {route}, f32 {route32}")
+        layout = ""
+        if plan.route == "streamed":
+            layout = f" ({plan.panel} columns, {plan.blocks} panel blocks, {plan.spill} spilled)"
+        print(
+            f"  saddle n={n:3d}: max cond {cond:.3e}, route f64 {plan.route}{layout},"
+            f" f32 {route32}"
+        )
         if not cond <= 1e4:
             raise RuntimeError(f"saddle inputs too ill-conditioned: {cond:.3e}")
-        pool = torch.tensor(pool, device="cuda")
         for e in INVERSE_BATCHES:
             e = min(e, INVERSE_MAX_BATCH.get(n, e))
             reps = -(-e // pool.shape[0])
@@ -603,9 +628,34 @@ def phase6_inverse_vs_plain() -> dict:
             if not err <= tol:
                 raise RuntimeError(f"inverse kernel disagrees: {err:.3e} > {tol:.0e}")
 
-    for n in (56, 121, 208, 460):
+    # The clustered panel's largest layouts, one matrix each: a cluster of 8
+    # blocks from n=3585, and from n=4097 on the rows past 4,096 spilled
+    # to L2 (one row at 4097, 113 rows a block at 5000).  The pool's
+    # construction bounds its condition number, which the sizes above check.
+    for n in INVERSE_LARGE:
+        a64 = torch.tensor(_saddle_pool(n, 1, seed=n), device="cuda")
+        plan = gj_inverse.launch_plan(n, torch.float64)
+        for dtype, tol in INVERSE_TOL.items():
+            a = a64.to(dtype)
+            ref = gj_inverse_plain(a)
+            err = rel_err(gj_inverse.gj_inverse(a), ref)
+            ms = _median_ms(lambda: gj_inverse.gj_inverse(a), reps=3, warmup=1)
+            library_ms = _median_ms(lambda: gj_inverse_plain(a), reps=3, warmup=1)
+            bound_ms, bound_by = _bound(2 * a.numel() * a.element_size(), 2 * n**3)
+            print(
+                f"  {str(dtype):14s} n={n} E=1, {plan.panel} columns, {plan.blocks} panel"
+                f" blocks, {plan.spill} rows a block spilled to L2: rel err {err:.3e};"
+                f" kernel {ms:.4f} ms, torch.linalg.inv {library_ms:.4f} ms,"
+                f" bound {bound_ms:.4f} ms ({bound_by})"
+            )
+            if not err <= tol:
+                raise RuntimeError(f"inverse kernel disagrees: {err:.3e} > {tol:.0e}")
+        del a64, a, ref
+
+    for n in (56, 121, 208, 460, 1089):
         for dtype in INVERSE_TOL:
-            singular = cases[f"saddle n={n} E=1000"][:8].to(dtype).clone()
+            e = min(1000, INVERSE_MAX_BATCH.get(n, 1000))
+            singular = cases[f"saddle n={n} E={e}"][:8].to(dtype).clone()
             singular[5, :, 17] = 0.0
             try:
                 gj_inverse.gj_inverse(singular)
@@ -623,11 +673,10 @@ def phase6_inverse_vs_plain() -> dict:
         a = cases[name]
         e, n = a.shape[0], a.shape[1]
         route = gj_inverse.route(n, torch.float64)
-        reps = 5 if route == "global" else 20  # the global route: ~0.1 s a call
-        ms = _median_ms(lambda: gj_inverse.gj_inverse(a), reps=reps)
-        library_ms = _median_ms(lambda: gj_inverse_plain(a), reps=reps)
+        ms = _median_ms(lambda: gj_inverse.gj_inverse(a))
+        library_ms = _median_ms(lambda: gj_inverse_plain(a))
         timing = {}
-        if e <= 16 and route != "global":  # a batch this small may be led by the launches
+        if e <= 16 and ms < 5.0:  # a call this small and quick may be led by the launches
             timing["ms_back_to_back"] = _median_ms(lambda: gj_inverse.gj_inverse(a), calls=10)
             timing["library_ms_back_to_back"] = _median_ms(lambda: gj_inverse_plain(a), calls=10)
         torch.cuda.synchronize()
@@ -650,7 +699,7 @@ def phase6_inverse_vs_plain() -> dict:
         want = INVERSE_ROUTES[timed["n"]]
         if timed["route"] != want:
             raise RuntimeError(f"n={timed['n']} takes the {timed['route']} route, not {want}")
-        if want != "global" and not timed["ms"] < timed["library_ms"]:
+        if not timed["ms"] < timed["library_ms"]:
             raise RuntimeError(f"the {want} route does not beat torch.linalg.inv: {timed}")
     first = routes[0]
     return {
@@ -824,6 +873,48 @@ def phase10_streamed_table() -> tuple[int, int]:
     _require_launches(10, gj_inverse=gj_inverse.launches, mass_edge=mass_edge.launches)
     return launches, gj_inverse.launches
 
+
+# The JAX package's Picard iterations for phase 13's setup, taken on the CPU
+# (mfv2d_tpu.solve_system_2d with JAX_PLATFORMS=cpu and the same settings:
+# Navier-Stokes Re=10, 4x4, p=16, "schur_direct", relaxation 0.7; velocity
+# error 1.291e-09).
+JAX_P16_PICARD_ITERATIONS = 17
+
+
+def phase13_p16() -> tuple[int, int]:
+    from mfv2d_torch.ops.kernels import gj_inverse, mass_edge
+    from mfv2d_torch.tracing import tracer
+
+    # Element blocks of n = 289 + 544 + 256 = 1089; M1 of 2 x 16 x 17 edges
+    # on (16 + 4)^2 quadrature points.
+    plan = gj_inverse.launch_plan(1089, torch.float64)
+    table = mass_edge.launch_plan(272, 272, 400, torch.float64)
+    print(
+        f"  p=16 f64: n=1089 blocks take the {plan.route} route, {plan.panel} columns"
+        f" a panel over a cluster of {plan.blocks} blocks ({plan.spill} rows spilled);"
+        f" M1 table in {table.stages} ring stages of {table.chunk} points"
+    )
+    if plan.route != "streamed" or plan.blocks < 2 or table.stages == 1:
+        raise RuntimeError("phase 13 does not reach the clustered panel and the streamed table")
+    gj_inverse.launches = 0
+    mass_edge.launches = 0
+    tracer.enable()
+    tracer.reset()
+    iters, err, wall, stats = _navier_stokes("schur_direct", n=4, p=16)
+    tracer.disable()
+    print(
+        f"phase 13: Navier-Stokes Re=10 4x4 p=16 schur_direct: {stats.n_total_dofs}"
+        f" unknowns, {iters} Picard iterations (the JAX package on the CPU:"
+        f" {JAX_P16_PICARD_ITERATIONS}), velocity error {err:.3e}, wall {wall:.3f} s"
+    )
+    for name, (calls, total) in sorted(tracer.stages.items(), key=lambda kv: -kv[1][1]):
+        print(f"  stage {name:28s} {total:9.4f} s ({calls} calls)")
+    _require_launches(13, gj_inverse=gj_inverse.launches, mass_edge=mass_edge.launches)
+    if iters != JAX_P16_PICARD_ITERATIONS:
+        raise RuntimeError(
+            f"p=16 Picard took {iters} iterations, the JAX package {JAX_P16_PICARD_ITERATIONS}"
+        )
+    return mass_edge.launches, gj_inverse.launches
 
 
 # The JAX package's Newton iterations for phase 11's setups, taken on the CPU
@@ -1100,6 +1191,17 @@ def phase12_marches() -> dict:
     return launches
 
 
+# Wall seconds of each phase after the build, printed before the reports.
+PHASE_WALLS: dict[str, float] = {}
+
+
+def _timed(phase: str, fn, *args):
+    t0 = time.perf_counter()
+    result = fn(*args)
+    PHASE_WALLS[phase] = round(time.perf_counter() - t0, 1)
+    return result
+
+
 def main() -> int:
     import mfv2d_torch  # noqa: F401  (fails outside a checkout of the repo)
 
@@ -1118,27 +1220,30 @@ def main() -> int:
     if args.probe == "inverse":
         print(json.dumps(phase6_inverse_vs_plain()))
         return 0
-    mass_timing = phase2_kernel_vs_plain()
+    mass_timing = _timed("2", phase2_kernel_vs_plain)
     if args.probe == "mass":
         print(json.dumps(mass_timing))
         return 0
-    phase3_golden()
-    mass_launches = [phase4_main_path()]
-    direct_iterations = phase5_picard()
-    inverse_timing = phase6_inverse_vs_plain()
-    inverse_launches = phase7_schur_cg()
-    mass_launches.append(phase8_static_condensation())
-    phase9_picard_condensed(direct_iterations)
-    phase10_mass_launches, phase10_inverse_launches = phase10_streamed_table()
+    _timed("3", phase3_golden)
+    mass_launches = [_timed("4", phase4_main_path)]
+    direct_iterations = _timed("5", phase5_picard)
+    inverse_timing = _timed("6", phase6_inverse_vs_plain)
+    inverse_launches = _timed("7", phase7_schur_cg)
+    mass_launches.append(_timed("8", phase8_static_condensation))
+    _timed("9", phase9_picard_condensed, direct_iterations)
+    phase10_mass_launches, phase10_inverse_launches = _timed("10", phase10_streamed_table)
     mass_launches.append(phase10_mass_launches)
-    newton_launches = phase11_newton(direct_iterations)
-    march_launches = phase12_marches()
+    newton_launches = _timed("11", phase11_newton, direct_iterations)
+    march_launches = _timed("12", phase12_marches)
+    p16_mass_launches, p16_inverse_launches = _timed("13", phase13_p16)
+    mass_launches.append(p16_mass_launches)
+    print(f"phase walls (s): {PHASE_WALLS}")
     # One mass_edge entry per timed shape, each with the launches of the
-    # main path its "launches_in" names: phases 4, 8 and 10.  The inverse's
-    # launches are phase 7's (register route) and, for the streamed route,
-    # phase 10's Navier-Stokes solve.
-    # Phases 11 and 12 launch M1 at p=4 and p=5; their counts ride on the
-    # p=4 entry.
+    # main path its "launches_in" names: phases 4, 8, 10 and 13.  The
+    # inverse's launches are phase 7's (register route) and, for the
+    # streamed route, phase 10's Navier-Stokes solve and, for its clustered
+    # panel, phase 13's.  Phases 11 and 12 launch M1 at p=4 and p=5; their
+    # counts ride on the p=4 entry.
     mass_timing[0]["launches_phase11"] = {k: c["mass_edge"] for k, c in newton_launches.items()}
     mass_timing[0]["launches_phase12"] = march_launches
     report = {
@@ -1161,6 +1266,7 @@ def main() -> int:
                 "replaces": "mfv2d_tpu/ops/pallas_factor.py:136",
                 "launches": inverse_launches,
                 "launches_streamed_phase10": phase10_inverse_launches,
+                "launches_clustered_phase13": p16_inverse_launches,
                 "launches_newton_phase11": {
                     k: c["gj_inverse"] for k, c in newton_launches.items()
                 },

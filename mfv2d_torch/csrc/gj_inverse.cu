@@ -115,21 +115,37 @@
 //     n = 224, E = 1000).  Covers the p = 5 Navier-Stokes blocks (n = 121)
 //     and the p = 8 mixed Poisson blocks (n = 208).  The kernel takes
 //     n <= 256, one panel row a thread.
-//   - Streamed route (219 <= n <= 1024): the
-//     blocked route's panel sweep and tile update, each its own launch, so
-//     that nothing of size n x b sits in shared memory on the update side
-//     and one matrix spreads over many blocks.  For each panel k0 (b = 32
-//     columns up to n = 512, b = 16 above, so that a thread's panel rows
-//     hold at most 64 entries):
-//       * panel launch, one block of 256 threads per matrix: the n x b
-//         panel is read into registers (two or four rows a thread),
-//         swept with the blocked route's pivoting (each row rotated one
-//         place a step, so that column k always sits in the first
-//         register: no select tree), and written to the
-//         output, where it is the inverse's own columns M; the panel's row
-//         gather src (the row of the matrix as read that lands in each row)
-//         goes to a scratch array, and so does the running row permutation
-//         sigma, sigma'[i] = sigma[src[i]];
+//   - Streamed route (n >= 219): the blocked route's panel sweep and tile
+//     update, each its own launch, so that nothing of size n x b sits in
+//     shared memory on the update side and one matrix spreads over many
+//     blocks.  For each panel k0 (b = 32 columns up to n = 512, 16 to
+//     n = 1024, 32 above):
+//       * panel launch: the n x b panel is read into registers, 64 entries
+//         a thread of 256 (two rows of 32, or four of 16), swept with the
+//         blocked route's pivoting (each row rotated one place a step, so
+//         that column k always sits in the first register: no select
+//         tree), and written to the output, where it is the inverse's own
+//         columns M; the panel's row gather src (the row of the matrix as
+//         read that lands in each row) goes to a scratch array, and so does
+//         the running row permutation sigma, sigma'[i] = sigma[src[i]],
+//         written in place once every block of the matrix has read it.  Up
+//         to n = 1024 one block holds a matrix's panel.  Above, a cluster
+//         of ceil(n / 512) blocks (at most 8, the portable size) holds it,
+//         512 rows of 32 columns a block, and a step crosses two cluster
+//         barriers instead of two block barriers: lane r of every warp
+//         stores the warp's pivot candidate in block r (distributed shared
+//         memory), each warp then reduces all 8 x blocks candidates itself,
+//         and the warps that hold the pivot row and row k spread them over
+//         their lanes with shuffles, each lane storing its entry in every
+//         block.  Past 8 x 512 = 4,096 rows each block keeps its share of
+//         the rest in natural column order in place in the output, where
+//         it stays in L2, and sweeps it with the same arithmetic (this
+//         spill and the cluster are template flags, compiled out of the
+//         one-block kernel of n <= 1024).  So the panel launch takes every
+//         n; the route
+//         stops where its other launches' shared memory does (n = 19,370 in
+//         f64, where the column swaps' one row and its permutation fill a
+//         block), an element block of 3.0 GB;
 //       * update launch, one block of 128 threads per matrix and column
 //         tile, ceil(n / b) - 1 of them per matrix (13 x 16 = 208 blocks at
 //         n = 441, E = 16):
@@ -147,35 +163,40 @@
 //         tried: their 10-bit mantissa is near the 1e-3 tolerance).
 //       then one launch undoes the row swaps as column swaps: column c of
 //       the result is column j of the swept matrix where sigma[j] = c.
-//     2 ceil(n / b) + 1 launches a call (31 at n = 460) on the caller's
-//     stream, after a clear of info; each launch first reads info[e], so
-//     a matrix whose panel failed is left alone by the rest of the call.
-//     The matrix crosses HBM twice per panel (C read, C' written; M is
-//     re-read from L2 by the matrix's tile blocks, which run side by side),
-//     about 51 GB at n = 460, E = 1000, 15 ms at 3.35 TB/s; the n pivot
-//     steps, a chain of barriers in one block per matrix, come next.  As
-//     measured there (tools/gj_inverse_ablation.py, H100 SXM at 700 W):
-//     31.9 ms a call, 20.9 ms without the products (the passes), 28.1 ms
-//     without the pivot steps, 0.23 ms for the 31 launches alone; a ring
-//     of two stages, chunks of 64 rows on 8 warps and 2 warps each owning
-//     whole tile rows were each within 5%, panels of 16 columns twice as
-//     slow.
-//   - Global route (above n = 1024): the unblocked body in place on the
-//     output in global memory, with only the pivot row and column staged in
-//     shared memory; each of the n steps rewrites the whole matrix through
-//     L2 or HBM.  Kept so that no n fails: the streamed panel holds at
-//     most 64 entries a thread (four rows of 16 at n = 1024).  The models
-//     reach it from Navier-Stokes at p = 16 (n = 289 + 544 + 256 = 1089);
-//     it is not timed, and chip_smoke.py phase 6 and the `cuda` test hold
-//     it against torch.linalg.inv at n = 1056.
-// The row swaps of the blocked and global routes are undone as column swaps
-// at the end.  Which route an n takes is decided by the wrapper
-// (mfv2d_torch/ops/kernels/gj_inverse.py, `route`), where it is checked
-// without a card; launch() below only validates it.
+//     2 ceil(n / b) + 1 launches a call (31 at n = 460, 71 at n = 1089) on
+//     the caller's stream, after a clear of info; each launch first reads
+//     info[e], so a matrix whose panel failed is left alone by the rest of
+//     the call.  The matrix crosses HBM twice per panel (C read, C'
+//     written; M is re-read from L2 by the matrix's tile blocks, which run
+//     side by side), about 51 GB at n = 460, E = 1000, 15 ms at 3.35 TB/s;
+//     the n pivot steps, a chain of barriers in one block (or cluster) per
+//     matrix, come next.  As measured (tools/gj_inverse_ablation.py, H100
+//     SXM at 700 W, f64): at n = 460, E = 1000 31.9 ms a call, 20.9 ms
+//     without the products (the passes), 28.1 ms without the pivot steps,
+//     0.23 ms for the 31 launches alone; a ring of two stages, chunks of 64
+//     rows on 8 warps and 2 warps each owning whole tile rows were each
+//     within 5%, panels of 16 columns twice as slow.  At
+//     n = 1056 and 1089 (E = 16) and 2401 (E = 4) the cluster took 7.55,
+//     11.74 and 33.72 ms (torch.linalg.inv 26.05, 28.20 and 67.28 ms); one
+//     block of 16 columns with the rows past 1,024 in L2 13.99, 20.52 and
+//     115.74 ms (twice the passes), two blocks of 32 with theirs in L2
+//     11.74, 19.65 and 103.33 ms.  The cluster's pivot steps cost 2.87,
+//     3.05 and 6.85 ms of it, 2.7-2.9 us a step against 1.2 us for one
+//     block's at n = 441.  Odd n (every Navier-Stokes block, (2p + 1)^2)
+//     takes the update's 8-byte copies and single stores: 8.69 ms without
+//     the pivot steps at n = 1089 against 4.68 ms at n = 1056.  One matrix
+//     alone is slower than torch.linalg.inv above n = 2560 (chip_smoke.py
+//     phase 6: 33.17 against 21.05 ms at n = 4096, and each spilled row
+//     adds global round trips to the chain, 54.66 ms at n = 4097).
+// The row swaps of the blocked and streamed routes are undone as column
+// swaps at the end.  Which route and layout an n takes is decided by the
+// wrapper (mfv2d_torch/ops/kernels/gj_inverse.py, `launch_plan`), where it is
+// checked without a card; launch() below only validates it.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC; the C entry points below are loaded with ctypes.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include <math.h>
@@ -185,11 +206,9 @@
 
 namespace {
 
+namespace cg = cooperative_groups;
+
 constexpr int kWarp = 32;
-constexpr int kMaxThreads = 1024;
-constexpr int kMaxWarps = kMaxThreads / kWarp;
-// Entries of the matrix per thread that decide the block size.
-constexpr int kEntriesPerThread = 8;
 
 // Blocked route: panel width (and column-tile width), threads per block, and
 // the update's thread layout: 8 threads across a tile's 32 columns and 32
@@ -217,11 +236,12 @@ constexpr int kRegisterThreads = 128;
 template <typename T>
 constexpr int register_min_blocks(int len) { return sizeof(T) == 8 && len > 56 ? 2 : 3; }
 
-// Streamed route: the largest n, the update's threads, rows per ring stage
-// and stages, and the padding of a staged row (kB + 4 entries: the
-// fragment loads of a warp then take two shared-memory wavefronts, the
-// least for 32 lanes of 8 bytes); the column swaps' threads and rows.
-constexpr int kStreamedMaxN = 1024;
+// Streamed route: the most blocks of a panel launch's cluster (the
+// portable cluster size), the update's threads, rows per ring stage and
+// stages, and the padding of a staged row (kB + 4 entries: the fragment
+// loads of a warp then take two shared-memory wavefronts, the least for 32
+// lanes of 8 bytes); the column swaps' threads and rows.
+constexpr int kMaxCluster = 8;
 constexpr int kStreamThreads = 128;
 constexpr int kStreamRows = 32;
 constexpr int kStreamStages = 3;
@@ -236,7 +256,7 @@ constexpr int kUnswapThreads = 128;
 constexpr int kUnswapRows = 16;
 
 // Route codes, as the wrapper passes them.
-enum Route : int { kRegisterRoute = 0, kBlockedRoute = 1, kStreamedRoute = 2, kGlobalRoute = 3 };
+enum Route : int { kRegisterRoute = 0, kBlockedRoute = 1, kStreamedRoute = 2 };
 
 // Pivot ranking key: |x|, with NaN ranked as +inf so that a NaN column is
 // picked and reported rather than skipped.
@@ -245,13 +265,6 @@ __device__ inline float pivot_key(float x) { return x != x ? INFINITY : fabsf(x)
 
 __device__ inline double fused_mul_add(double a, double b, double c) { return fma(a, b, c); }
 __device__ inline float fused_mul_add(float a, float b, float c) { return fmaf(a, b, c); }
-
-template <typename T>
-size_t scratch_bytes(int n) {
-  // pivot row and column, the reduction slots, the row permutation
-  return (2 * static_cast<size_t>(n) + kMaxWarps) * sizeof(T) +
-         (kMaxWarps + static_cast<size_t>(n)) * sizeof(int);
-}
 
 template <typename T>
 size_t blocked_route_bytes(int n) {
@@ -298,14 +311,6 @@ size_t register_route_bytes(int n) {
   return kRegisterThreads / register_threads(n) * register_group_bytes<T>(n);
 }
 
-int block_threads(int n) {
-  const long long want = (static_cast<long long>(n) * n + kEntriesPerThread - 1) / kEntriesPerThread;
-  long long t = (want + kWarp - 1) / kWarp * kWarp;
-  if (t < kWarp) t = kWarp;
-  if (t > kMaxThreads) t = kMaxThreads;
-  return static_cast<int>(t);
-}
-
 // Keep the larger key; on a tie the smaller row.
 template <typename T>
 __device__ inline void take_max(T& key, int& idx, T other_key, int other_idx) {
@@ -313,128 +318,6 @@ __device__ inline void take_max(T& key, int& idx, T other_key, int other_idx) {
     key = other_key;
     idx = other_idx;
   }
-}
-
-// Global route (see the design note): one block per matrix, swept in place
-// on the output.
-template <typename T>
-__global__ void __launch_bounds__(kMaxThreads)
-gj_inverse_global_kernel(const T* __restrict__ a, T* __restrict__ out, int* __restrict__ info,
-                         int n) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __shared__ int s_pivot_row;
-  __shared__ int s_bad;
-
-  const long long nn = static_cast<long long>(n) * n;
-  const long long e = blockIdx.x;
-  const T* src = a + e * nn;
-  T* w = out + e * nn;
-
-  T* row = reinterpret_cast<T*>(smem_raw);  // scaled pivot row
-  T* col = row + n;                         // pivot column, rows k and p exchanged
-  T* red_key = col + n;
-  int* red_idx = reinterpret_cast<int*>(red_key + kMaxWarps);
-  int* perm = red_idx + kMaxWarps;
-
-  const int tx = threadIdx.x;
-  const int ty = threadIdx.y;
-  const int tid = ty * blockDim.x + tx;
-  const int n_threads = blockDim.x * blockDim.y;
-  const int lane = tid % kWarp;
-  const int warp = tid / kWarp;
-  const int n_warps = n_threads / kWarp;
-
-  for (long long i = tid; i < nn; i += n_threads) w[i] = src[i];
-  __syncthreads();
-
-  int failed_at = 0;
-  for (int k = 0; k < n; ++k) {
-    // Pivot: the largest |W[i,k]| over rows i >= k.
-    T key = T(-1);
-    int idx = n;
-    for (int i = k + tid; i < n; i += n_threads) {
-      take_max(key, idx, pivot_key(w[static_cast<long long>(i) * n + k]), i);
-    }
-    for (int off = kWarp / 2; off > 0; off /= 2) {
-      const T other_key = __shfl_down_sync(0xffffffffu, key, off);
-      const int other_idx = __shfl_down_sync(0xffffffffu, idx, off);
-      take_max(key, idx, other_key, other_idx);
-    }
-    if (lane == 0) {
-      red_key[warp] = key;
-      red_idx[warp] = idx;
-    }
-    __syncthreads();
-    if (warp == 0) {
-      key = lane < n_warps ? red_key[lane] : T(-1);
-      idx = lane < n_warps ? red_idx[lane] : n;
-      for (int off = kWarp / 2; off > 0; off /= 2) {
-        const T other_key = __shfl_down_sync(0xffffffffu, key, off);
-        const int other_idx = __shfl_down_sync(0xffffffffu, idx, off);
-        take_max(key, idx, other_key, other_idx);
-      }
-      if (lane == 0) {
-        s_pivot_row = idx;
-        s_bad = !(key > T(0) && key < T(INFINITY));
-        perm[k] = idx;
-      }
-    }
-    __syncthreads();
-    if (s_bad) {  // uniform across the block
-      failed_at = k + 1;
-      break;
-    }
-    const int p = s_pivot_row;
-    const T inv_pivot = T(1) / w[static_cast<long long>(p) * n + k];
-
-    // Stage the scaled pivot row (old row p) and column k as it reads after
-    // the swap; nothing is written to W yet.
-    for (int j = tid; j < n; j += n_threads) {
-      const T v = w[static_cast<long long>(p) * n + j];
-      row[j] = j == k ? inv_pivot : v * inv_pivot;
-      const int from = j == k ? p : (j == p ? k : j);
-      col[j] = w[static_cast<long long>(from) * n + k];
-    }
-    __syncthreads();
-    if (p != k) {  // the other half of the swap: old row k moves to row p
-      for (int j = tid; j < n; j += n_threads) {
-        w[static_cast<long long>(p) * n + j] = w[static_cast<long long>(k) * n + j];
-      }
-      __syncthreads();
-    }
-    // Rank-1 update; every entry is read and written by its own thread.
-    for (int i = ty; i < n; i += blockDim.y) {
-      T* wi = w + static_cast<long long>(i) * n;
-      if (i == k) {
-        for (int j = tx; j < n; j += blockDim.x) wi[j] = row[j];
-      } else {
-        const T ci = col[i];
-        for (int j = tx; j < n; j += blockDim.x) {
-          const T base = j == k ? T(0) : wi[j];
-          wi[j] = fused_mul_add(-ci, row[j], base);
-        }
-      }
-    }
-    __syncthreads();
-  }
-
-  if (failed_at != 0) {
-    if (tid == 0) info[e] = failed_at;
-    return;
-  }
-  // Undo the row swaps as column swaps, last first; each thread owns rows.
-  for (int i = tid; i < n; i += n_threads) {
-    T* wi = w + static_cast<long long>(i) * n;
-    for (int k = n - 1; k >= 0; --k) {
-      const int pk = perm[k];
-      if (pk != k) {
-        const T t = wi[k];
-        wi[k] = wi[pk];
-        wi[pk] = t;
-      }
-    }
-  }
-  if (tid == 0) info[e] = 0;
 }
 
 // Register route helpers.  A group of kThreads threads waits for itself
@@ -921,22 +804,57 @@ gj_inverse_blocked_kernel(const T* a, T* out, int* info, int n) {
   if (tid == 0) info[e] = 0;
 }
 
-// Streamed route (see the design note).  Panel launch: one block per
-// matrix sweeps columns [k0, k0 + kB) of w (the input for the first panel,
-// the output after) in registers, thread tid holding panel rows tid + q
-// kBlockedThreads, and writes them to the output; gather[e] takes the
-// panel's row gather src and sigma[e] the running row permutation.
-template <typename T, int kRows, int kB>
+// Streamed route, panel launch helpers.  A panel launch's blocks of one
+// matrix form a cluster (kCluster) or are one block alone; x goes to
+// `local` in block `to` of the cluster (in this block alone), and sync_all
+// waits for every thread of the cluster (of the block), ordering shared
+// and global memory among them.
+template <bool kCluster, typename X>
+__device__ inline void store_to(X* local, X x, int to) {
+  if constexpr (kCluster) {
+    *cg::this_cluster().map_shared_rank(local, to) = x;
+  } else {
+    *local = x;
+  }
+}
+
+template <bool kCluster>
+__device__ inline void sync_all() {
+  if constexpr (kCluster) {
+    cg::this_cluster().sync();
+  } else {
+    __syncthreads();
+  }
+}
+
+// Streamed route (see the design note).  Panel launch: the blocks of one
+// matrix (a cluster of `blocks` where kCluster, else one) sweep columns
+// [k0, k0 + kB) of w (the input for the first panel, the output after) and
+// write them to the output.  Block r holds rows r kHeld + tid + q
+// kBlockedThreads in registers; where kSpill, its `spill` rows from
+// blocks kHeld + r spill on in natural column order, in place in the
+// output's panel columns, where they stay in L2.  gather[e] takes the
+// panel's row gather src, and sigma[e] the running row permutation,
+// sigma'[i] = sigma[src[i]] (src[i] for the first panel).  The
+// instantiation of one block with no spill is the kernel of n <= 1024:
+// the cluster's ranks, its distributed stores and the spilled rows are
+// compiled out of it.
+template <typename T, int kRows, int kB, bool kCluster, bool kSpill>
 __global__ void __launch_bounds__(kBlockedThreads, 1)
-gj_streamed_panel_kernel(const T* w, T* out, int* info, int* gather, int* sigma, int n, int k0) {
+gj_streamed_panel_kernel(const T* w, T* out, int* info, int* gather, int* sigma, int n, int k0,
+                         int blocks, int spill) {
+  constexpr int kHeld = kRows * kBlockedThreads;
+  constexpr int kSlots = (kCluster ? kMaxCluster : 1) * kBlockedWarps;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ T prow[kB];  // the pivot row, raw and rotated
-  __shared__ T oldk[kB];  // row k before the swap
-  __shared__ T red_key[kBlockedWarps];
-  __shared__ int red_idx[kBlockedWarps];
+  __shared__ T oldk[kB];  // row k before the swap, rotated
+  __shared__ T red_key[kSlots];  // the warp maxima of every block
+  __shared__ int red_idx[kSlots];
   int* src = reinterpret_cast<int*>(smem_raw);  // src[i]: the row as read that lands in row i
 
-  const long long e = blockIdx.x;
+  const int nb = kCluster ? blocks : 1;
+  const int rank = kCluster ? static_cast<int>(cg::this_cluster().block_rank()) : 0;
+  const long long e = kCluster ? blockIdx.x / nb : blockIdx.x;
   if (info[e] != 0) return;  // an earlier panel of this matrix failed
   const long long nn = static_cast<long long>(n) * n;
   const T* we = w + e * nn;
@@ -945,18 +863,33 @@ gj_streamed_panel_kernel(const T* w, T* out, int* info, int* gather, int* sigma,
   const int lane = tid % kWarp;
   const int warp = tid / kWarp;
   const int bk = min(kB, n - k0);
+  const int row0 = rank * kHeld;  // the first register row
+  // The spilled rows: first + m, m < count; row m, column k0 + c at sp[m n + c].
+  const int first = nb * kHeld + rank * spill;
+  const int count = kSpill ? max(0, min(spill, n - first)) : 0;
+  T* sp = oe + static_cast<long long>(first) * n + k0;
 
   for (int i = tid; i < n; i += kBlockedThreads) src[i] = i;
   T v[kRows][kB];
 #pragma unroll
   for (int q = 0; q < kRows; ++q) {
-    const int i = tid + q * kBlockedThreads;
+    const int i = row0 + tid + q * kBlockedThreads;
 #pragma unroll
     for (int j = 0; j < kB; ++j) {
       v[q][j] = i < n && j < bk ? we[static_cast<long long>(i) * n + k0 + j] : T(0);
     }
   }
-  __syncthreads();
+  if constexpr (kSpill) {
+    if (we != oe) {  // the first panel: the spilled rows' columns to the output
+      for (int idx = tid; idx < count * bk; idx += kBlockedThreads) {
+        const int m = idx / bk;
+        const int c = idx - m * bk;
+        sp[static_cast<long long>(m) * n + c] = we[static_cast<long long>(first + m) * n + k0 + c];
+      }
+    }
+  }
+  // Every block of the cluster has started before any writes to another.
+  sync_all<kCluster>();
 
   // bk pivot steps, each behind two barriers, as in the blocked route, but
   // with column k0 + t at v[q][0] in step t: each step rotates a row left
@@ -969,38 +902,95 @@ gj_streamed_panel_kernel(const T* w, T* out, int* info, int* gather, int* sigma,
     int idx = n;
 #pragma unroll
     for (int q = 0; q < kRows; ++q) {
-      const int i = tid + q * kBlockedThreads;
+      const int i = row0 + tid + q * kBlockedThreads;
       if (i >= k && i < n) take_max(key, idx, pivot_key(v[q][0]), i);
     }
+    if constexpr (kSpill) {
+      for (int m = tid; m < count; m += kBlockedThreads) {
+        const T x = sp[static_cast<long long>(m) * n + t];
+        if (first + m >= k) take_max(key, idx, pivot_key(x), first + m);
+      }
+    }
     for (int off = kWarp / 2; off > 0; off /= 2) {
-      const T other_key = __shfl_down_sync(0xffffffffu, key, off);
-      const int other_idx = __shfl_down_sync(0xffffffffu, idx, off);
+      const T other_key = __shfl_xor_sync(0xffffffffu, key, off);
+      const int other_idx = __shfl_xor_sync(0xffffffffu, idx, off);
       take_max(key, idx, other_key, other_idx);
     }
-    if (lane == 0) {
-      red_key[warp] = key;
-      red_idx[warp] = idx;
+    // Lane b hands the warp's maximum to block b.
+    if (lane < nb) {
+      store_to<kCluster>(red_key + rank * kBlockedWarps + warp, key, lane);
+      store_to<kCluster>(red_idx + rank * kBlockedWarps + warp, idx, lane);
     }
-    __syncthreads();
-    key = red_key[0];
-    idx = red_idx[0];
+    sync_all<kCluster>();
+    if constexpr (!kCluster) {
+      key = red_key[0];
+      idx = red_idx[0];
 #pragma unroll
-    for (int r = 1; r < kBlockedWarps; ++r) take_max(key, idx, red_key[r], red_idx[r]);
-    if (!(key > T(0) && key < T(INFINITY))) {  // the same in every thread
-      if (tid == 0) info[e] = k + 1;
+      for (int r = 1; r < kBlockedWarps; ++r) take_max(key, idx, red_key[r], red_idx[r]);
+    } else {  // up to 64 maxima: two a lane, then a butterfly
+      key = T(-1);
+      idx = n;
+      for (int r = lane; r < nb * kBlockedWarps; r += kWarp) {
+        take_max(key, idx, red_key[r], red_idx[r]);
+      }
+      for (int off = kWarp / 2; off > 0; off /= 2) {
+        const T other_key = __shfl_xor_sync(0xffffffffu, key, off);
+        const int other_idx = __shfl_xor_sync(0xffffffffu, idx, off);
+        take_max(key, idx, other_key, other_idx);
+      }
+    }
+    if (!(key > T(0) && key < T(INFINITY))) {  // the same in every thread of the cluster
+      if (rank == 0 && tid == 0) info[e] = k + 1;
       return;
     }
     const int p = idx;
+    // The rows p and k, rotated as the register rows are, go to prow and
+    // oldk of every block: from the thread that holds them (one block), the
+    // warp that holds them (a cluster: one entry a lane, so that each lane
+    // stores `blocks` values) or, for a spilled row, the first kB threads.
+    if constexpr (!kCluster) {
 #pragma unroll
-    for (int q = 0; q < kRows; ++q) {
-      const int i = tid + q * kBlockedThreads;
-      if (i == p) {
+      for (int q = 0; q < kRows; ++q) {
+        const int i = tid + q * kBlockedThreads;
+        if (i == p) {
 #pragma unroll
-        for (int j = 0; j < kB; ++j) prow[j] = v[q][j];
+          for (int j = 0; j < kB; ++j) prow[j] = v[q][j];
+        }
+        if (i == k) {
+#pragma unroll
+          for (int j = 0; j < kB; ++j) oldk[j] = v[q][j];
+        }
       }
-      if (i == k) {
+    } else {
 #pragma unroll
-        for (int j = 0; j < kB; ++j) oldk[j] = v[q][j];
+      for (int s = 0; s < 2; ++s) {
+        const int rel = (s == 0 ? p : k) - row0;
+        if (rel >= 0 && rel < kHeld && warp == rel % kBlockedThreads / kWarp) {
+          const int q_own = rel / kBlockedThreads;
+          T mine = T(0);
+#pragma unroll
+          for (int j = 0; j < kB; ++j) {
+            T x = v[0][j];
+#pragma unroll
+            for (int q = 1; q < kRows; ++q) x = q == q_own ? v[q][j] : x;
+            x = __shfl_sync(0xffffffffu, x, rel % kWarp);
+            if (lane == j) mine = x;
+          }
+          if (lane < kB) {
+            for (int b = 0; b < nb; ++b) store_to<kCluster>((s == 0 ? prow : oldk) + lane, mine, b);
+          }
+        }
+      }
+    }
+    if constexpr (kSpill) {
+#pragma unroll
+      for (int s = 0; s < 2; ++s) {
+        const int row = s == 0 ? p : k;
+        if (row >= first && row < first + count && tid < kB) {
+          const int c = (t + tid) & (kB - 1);
+          const T x = c < bk ? sp[static_cast<long long>(row - first) * n + c] : T(0);
+          for (int b = 0; b < nb; ++b) store_to<kCluster>((s == 0 ? prow : oldk) + tid, x, b);
+        }
       }
     }
     if (tid == 0) {
@@ -1008,11 +998,11 @@ gj_streamed_panel_kernel(const T* w, T* out, int* info, int* gather, int* sigma,
       src[k] = src[p];
       src[p] = s_k;
     }
-    __syncthreads();
+    sync_all<kCluster>();
     const T inv_pivot = T(1) / prow[0];
 #pragma unroll
     for (int q = 0; q < kRows; ++q) {
-      const int i = tid + q * kBlockedThreads;
+      const int i = row0 + tid + q * kBlockedThreads;
       if (i == k) {
 #pragma unroll
         for (int j = 0; j + 1 < kB; ++j) v[q][j] = inv_pivot * prow[j + 1];
@@ -1028,23 +1018,44 @@ gj_streamed_panel_kernel(const T* w, T* out, int* info, int* gather, int* sigma,
         v[q][kB - 1] = -f;
       }
     }
+    if constexpr (kSpill) {
+      // The spilled rows, in natural order: column c is entry (c - t) mod
+      // kB of the rotated rows.  Each is read and written by one thread.
+      for (int m = tid; m < count; m += kBlockedThreads) {
+        const int i = first + m;
+        T* r = sp + static_cast<long long>(m) * n;
+        if (i == k) {
+          for (int c = 0; c < bk; ++c) {
+            r[c] = c == t ? inv_pivot : inv_pivot * prow[(c - t) & (kB - 1)];
+          }
+        } else {
+          const bool moved = i == p;  // row p takes the old row k
+          const T f = (moved ? oldk[0] : r[t]) * inv_pivot;
+          for (int c = 0; c < bk; ++c) {
+            const int j = (c - t) & (kB - 1);
+            r[c] = c == t ? -f : fused_mul_add(-f, prow[j], moved ? oldk[j] : r[c]);
+          }
+        }
+      }
+    }
   }
   // A ragged last panel rotates on, without arithmetic, until each column
   // is back in its place (the padding columns stay zero).
   for (int t = bk; t < kB; ++t) {
 #pragma unroll
     for (int q = 0; q < kRows; ++q) {
-      const T first = v[q][0];
+      const T first_entry = v[q][0];
 #pragma unroll
       for (int j = 0; j + 1 < kB; ++j) v[q][j] = v[q][j + 1];
-      v[q][kB - 1] = first;
+      v[q][kB - 1] = first_entry;
     }
   }
 
-  // The panel is M, the inverse's columns [k0, k0 + bk).
+  // The panel is M, the inverse's columns [k0, k0 + bk); the spilled rows
+  // are already in place.
 #pragma unroll
   for (int q = 0; q < kRows; ++q) {
-    const int i = tid + q * kBlockedThreads;
+    const int i = row0 + tid + q * kBlockedThreads;
     if (i < n) {
 #pragma unroll
       for (int j = 0; j < kB; ++j) {
@@ -1052,23 +1063,34 @@ gj_streamed_panel_kernel(const T* w, T* out, int* info, int* gather, int* sigma,
       }
     }
   }
-  __syncthreads();
+  // src is final since the last step's second barrier.  Each row's slot of
+  // src then takes its new permutation entry, which goes out once every
+  // block of the matrix has read the old permutation.
   int* ge = gather + e * n;
   int* se = sigma + e * n;
-  int moved[kRows];
 #pragma unroll
   for (int q = 0; q < kRows; ++q) {
-    const int i = tid + q * kBlockedThreads;
+    const int i = row0 + tid + q * kBlockedThreads;
     if (i < n) {
       ge[i] = src[i];
-      moved[q] = k0 == 0 ? src[i] : se[src[i]];
+      if (k0 > 0) src[i] = se[src[i]];
     }
   }
-  __syncthreads();
+  if constexpr (kSpill) {
+    for (int m = tid; m < count; m += kBlockedThreads) {
+      const int i = first + m;
+      ge[i] = src[i];
+      if (k0 > 0) src[i] = se[src[i]];
+    }
+  }
+  sync_all<kCluster>();
 #pragma unroll
   for (int q = 0; q < kRows; ++q) {
-    const int i = tid + q * kBlockedThreads;
-    if (i < n) se[i] = moved[q];
+    const int i = row0 + tid + q * kBlockedThreads;
+    if (i < n) se[i] = src[i];
+  }
+  if constexpr (kSpill) {
+    for (int m = tid; m < count; m += kBlockedThreads) se[first + m] = src[first + m];
   }
 }
 
@@ -1289,15 +1311,17 @@ gj_streamed_update_kernel(const T* w, T* out, const int* info, const int* gather
   copy_async_wait_pending<0>();
 }
 
+// Column swaps: the row permutation, then one row of n entries per warp.
 template <typename T>
-size_t streamed_unswap_bytes(int n) {
+size_t streamed_unswap_bytes(int n, int warps) {
   return (static_cast<size_t>(n) * sizeof(int) + 15) / 16 * 16 +
-         static_cast<size_t>(kUnswapThreads / kWarp) * n * sizeof(T);
+         static_cast<size_t>(warps) * n * sizeof(T);
 }
 
 // Column swaps of the streamed route: kUnswapRows rows of one matrix a
 // block, one row at a time a warp, through shared memory; column c of the
-// result is column j of the swept matrix where sigma[j] = c.
+// result is column j of the swept matrix where sigma[j] = c.  The block
+// has as many warps as rows of n fit beside the permutation (at most 4).
 template <typename T>
 __global__ void __launch_bounds__(kUnswapThreads)
 gj_streamed_unswap_kernel(T* out, const int* info, const int* sigma, int n) {
@@ -1309,12 +1333,13 @@ gj_streamed_unswap_kernel(T* out, const int* info, const int* sigma, int n) {
   int* col = reinterpret_cast<int*>(smem_raw);
   const int lane = threadIdx.x % kWarp;
   const int warp = threadIdx.x / kWarp;
+  const int warps = blockDim.x / kWarp;
   T* buf = reinterpret_cast<T*>(smem_raw + (static_cast<size_t>(n) * sizeof(int) + 15) / 16 * 16) +
            static_cast<size_t>(warp) * n;
-  for (int j = threadIdx.x; j < n; j += kUnswapThreads) col[sigma[e * n + j]] = j;
+  for (int j = threadIdx.x; j < n; j += blockDim.x) col[sigma[e * n + j]] = j;
   __syncthreads();
   const int i1 = min(i0 + kUnswapRows, n);
-  for (int i = i0 + warp; i < i1; i += kUnswapThreads / kWarp) {
+  for (int i = i0 + warp; i < i1; i += warps) {
     T* row = out + e * n * n + static_cast<long long>(i) * n;
     for (int j = lane; j < n; j += kWarp) buf[j] = row[j];
     __syncwarp();
@@ -1323,40 +1348,92 @@ gj_streamed_unswap_kernel(T* out, const int* info, const int* sigma, int n) {
   }
 }
 
+// Shared memory of a panel launch: the row gather src.
+size_t streamed_panel_bytes(int n) { return (static_cast<size_t>(n) * sizeof(int) + 15) / 16 * 16; }
+
 // The whole streamed route for one call: ceil(n / kB) panel and update
-// launches, then the column swaps, on `stream`.  scratch holds gather
-// [n_elem][n], then sigma [n_elem][n].
+// launches, then the column swaps, on `stream`.  The panel launch has
+// `blocks` blocks per matrix, a cluster where that is above 1, and their
+// rows beyond their registers spill to L2.  scratch holds gather
+// [n_elem][n], then sigma [n_elem][n].  `limit`: the dynamic shared memory
+// a block may opt in to.
 template <typename T, int kRows, int kB>
-int launch_streamed(const T* a, T* out, int* info, int* scratch, int n_elem, int n,
-                    cudaStream_t stream) {
+int launch_streamed(const T* a, T* out, int* info, int* scratch, int n_elem, int n, int blocks,
+                    size_t limit, cudaStream_t stream) {
+  constexpr int kHeld = kRows * kBlockedThreads;
+  // A cluster holds 32 columns (two rows of them a thread); no cluster
+  // kernel is built for 16.
+  constexpr bool kCluster = kB == kPanel;
+  const int invalid = static_cast<int>(cudaErrorInvalidValue);
+  if (blocks < 1 || blocks > kMaxCluster || (blocks > 1 && !kCluster)) return invalid;
+  const long long held = static_cast<long long>(blocks) * kHeld;
+  const int spill = n > held ? static_cast<int>((n - held + blocks - 1) / blocks) : 0;
+  const size_t panel_smem = streamed_panel_bytes(n);
+  // prow, oldk and the warp maxima of a whole cluster, at most
+  const size_t panel_static =
+      2 * kB * sizeof(T) + kMaxCluster * kBlockedWarps * (sizeof(T) + sizeof(int));
   const size_t update_smem = streamed_update_bytes<T>(kB, n);
-  cudaError_t err = cudaFuncSetAttribute(gj_streamed_update_kernel<T, kB>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(update_smem));
+  int unswap_warps = kUnswapThreads / kWarp;
+  while (unswap_warps > 1 && streamed_unswap_bytes<T>(n, unswap_warps) > limit) unswap_warps /= 2;
+  const size_t unswap_smem = streamed_unswap_bytes<T>(n, unswap_warps);
+  if (panel_smem + panel_static > limit || update_smem > limit || unswap_smem > limit) {
+    return invalid;
+  }
+  void (*panel)(const T*, T*, int*, int*, int*, int, int, int, int) =
+      blocks > 1 ? (spill > 0 ? gj_streamed_panel_kernel<T, kRows, kB, kCluster, true>
+                              : gj_streamed_panel_kernel<T, kRows, kB, kCluster, false>)
+                 : (spill > 0 ? gj_streamed_panel_kernel<T, kRows, kB, false, true>
+                              : gj_streamed_panel_kernel<T, kRows, kB, false, false>);
+  cudaError_t err = cudaFuncSetAttribute(panel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(panel_smem));
+  if (err == cudaSuccess) {
+    err = cudaFuncSetAttribute(gj_streamed_update_kernel<T, kB>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(update_smem));
+  }
+  if (err == cudaSuccess) {
+    err = cudaFuncSetAttribute(gj_streamed_unswap_kernel<T>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(unswap_smem));
+  }
   if (err == cudaSuccess) err = cudaMemsetAsync(info, 0, n_elem * sizeof(int), stream);
   if (err != cudaSuccess) return static_cast<int>(err);
+  const long long en = static_cast<long long>(n_elem) * n;
   int* gather = scratch;
-  int* sigma = scratch + static_cast<long long>(n_elem) * n;
+  int* sigma = scratch + en;
   constexpr int kVec = 16 / sizeof(T);
   const int vec = n % kVec == 0 && reinterpret_cast<uintptr_t>(a) % 16 == 0 &&
                   reinterpret_cast<uintptr_t>(out) % 16 == 0;
   const int n_tiles = (n + kB - 1) / kB;
+
+  cudaLaunchAttribute cluster;
+  cluster.id = cudaLaunchAttributeClusterDimension;
+  cluster.val.clusterDim.x = blocks;
+  cluster.val.clusterDim.y = 1;
+  cluster.val.clusterDim.z = 1;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(static_cast<unsigned>(static_cast<long long>(n_elem) * blocks));
+  config.blockDim = dim3(kBlockedThreads);
+  config.dynamicSmemBytes = panel_smem;
+  config.stream = stream;
+  config.attrs = &cluster;
+  config.numAttrs = blocks > 1 ? 1 : 0;
   for (int k0 = 0; k0 < n; k0 += kB) {
     const T* w = k0 == 0 ? a : out;
-    gj_streamed_panel_kernel<T, kRows, kB>
-        <<<n_elem, kBlockedThreads, n * sizeof(int), stream>>>(w, out, info, gather, sigma, n, k0);
-    err = cudaGetLastError();
+    err = cudaLaunchKernelEx(&config, panel, w, out, info, gather, sigma, n, k0, blocks, spill);
+    if (err == cudaSuccess) err = cudaGetLastError();
     if (err == cudaSuccess && n_tiles > 1) {
-      const long long blocks = static_cast<long long>(n_elem) * (n_tiles - 1);
-      gj_streamed_update_kernel<T, kB><<<static_cast<unsigned>(blocks), kStreamThreads,
+      const long long update_blocks = static_cast<long long>(n_elem) * (n_tiles - 1);
+      gj_streamed_update_kernel<T, kB><<<static_cast<unsigned>(update_blocks), kStreamThreads,
                                          update_smem, stream>>>(w, out, info, gather, n, k0, vec);
       err = cudaGetLastError();
     }
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  const long long blocks = static_cast<long long>(n_elem) * ((n + kUnswapRows - 1) / kUnswapRows);
-  gj_streamed_unswap_kernel<T><<<static_cast<unsigned>(blocks), kUnswapThreads,
-                                 streamed_unswap_bytes<T>(n), stream>>>(out, info, sigma, n);
+  const long long unswap_blocks =
+      static_cast<long long>(n_elem) * ((n + kUnswapRows - 1) / kUnswapRows);
+  gj_streamed_unswap_kernel<T><<<static_cast<unsigned>(unswap_blocks), unswap_warps * kWarp,
+                                 unswap_smem, stream>>>(out, info, sigma, n);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1447,7 +1524,7 @@ int launch_register_for(const T* a, T* out, int* info, int n_elem, int n, int de
 // takes n on this device; cudaErrorInvalidValue where it does not.
 template <typename T>
 int launch(const void* a, void* out, int* info, int* scratch, int n_elem, int n, int route,
-           int panel, void* stream) {
+           int panel, int blocks, void* stream) {
   if (n_elem <= 0 || n <= 0) return 0;
   int device = 0;
   int optin = 0;
@@ -1468,20 +1545,16 @@ int launch(const void* a, void* out, int* info, int* scratch, int n_elem, int n,
                            blocked_route_bytes<T>(n), s, a_t, out_t, info, n);
     case kStreamedRoute:
       // Panel rows a thread holds: 32 entries in two rows, or 16 in four.
-      if (scratch == nullptr || streamed_update_bytes<T>(panel, n) > limit) return invalid;
-      if (panel == kPanel && n <= 2 * kBlockedThreads) {
-        return launch_streamed<T, 2, kPanel>(a_t, out_t, info, scratch, n_elem, n, s);
+      if (scratch == nullptr) return invalid;
+      if (panel == kPanel) {
+        return launch_streamed<T, 2, kPanel>(a_t, out_t, info, scratch, n_elem, n, blocks, limit,
+                                             s);
       }
-      if (panel == kPanel / 2 && n <= kStreamedMaxN) {
-        return launch_streamed<T, 4, kPanel / 2>(a_t, out_t, info, scratch, n_elem, n, s);
+      if (panel == kPanel / 2) {
+        return launch_streamed<T, 4, kPanel / 2>(a_t, out_t, info, scratch, n_elem, n, blocks,
+                                                 limit, s);
       }
       return invalid;
-    case kGlobalRoute: {
-      if (scratch_bytes<T>(n) > limit) return invalid;
-      const dim3 unblocked(kWarp, block_threads(n) / kWarp);
-      return launch_kernel(gj_inverse_global_kernel<T>, n_elem, unblocked, scratch_bytes<T>(n), s,
-                           a_t, out_t, info, n);
-    }
     default:
       return invalid;
   }
@@ -1491,14 +1564,18 @@ int launch(const void* a, void* out, int* info, int* scratch, int n_elem, int n,
 
 // The inverses of n_elem n x n matrices a into out, on `stream`; info[e] is
 // 0 or the first zero or non-finite pivot k+1 of matrix e.  route: 0
-// register, 1 blocked, 2 streamed (panel: 32 or 16 columns; scratch: 2
-// n_elem n ints), 3 global.  Returns a CUDA error code.
+// register, 1 blocked, 2 streamed (panel: 32 or 16 columns; blocks: the
+// panel launch's blocks per matrix, 1 to 8, whose rows beyond their
+// registers spill to L2; scratch: 2 n_elem n ints).  Returns a CUDA error
+// code.
 extern "C" int mfv2d_gj_inverse_f64(const void* a, void* out, int* info, int* scratch,
-                                    int n_elem, int n, int route, int panel, void* stream) {
-  return launch<double>(a, out, info, scratch, n_elem, n, route, panel, stream);
+                                    int n_elem, int n, int route, int panel, int blocks,
+                                    void* stream) {
+  return launch<double>(a, out, info, scratch, n_elem, n, route, panel, blocks, stream);
 }
 
 extern "C" int mfv2d_gj_inverse_f32(const void* a, void* out, int* info, int* scratch,
-                                    int n_elem, int n, int route, int panel, void* stream) {
-  return launch<float>(a, out, info, scratch, n_elem, n, route, panel, stream);
+                                    int n_elem, int n, int route, int panel, int blocks,
+                                    void* stream) {
+  return launch<float>(a, out, info, scratch, n_elem, n, route, panel, blocks, stream);
 }

@@ -13,8 +13,10 @@ float64.
   first element at fault, as ``torch.linalg.inv`` does for a singular input.
 
 The kernel replaces the Pallas TPU kernel ``gj_inverse_pallas``
-(mfv2d_tpu/ops/pallas_factor.py).  Its route depends on n (:func:`route`);
-the source note in the ``.cu`` file says what bounds each on the card.
+(mfv2d_tpu/ops/pallas_factor.py).  Its route and layout depend on n and
+the dtype, and are decided here (:func:`launch_plan`), so that they can be
+checked without a card; the source note in the ``.cu`` file says what
+bounds each route on the card.
 ``launches`` counts the kernel launches made through this wrapper, so a run
 can show that its path used the kernel.
 """
@@ -23,6 +25,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -33,15 +36,63 @@ launches = 0
 
 _SUFFIX = {torch.float64: "f64", torch.float32: "f32"}
 # Route names in the order of their codes in csrc/gj_inverse.cu.
-ROUTES = ("register", "blocked", "streamed", "global")
+ROUTES = ("register", "blocked", "streamed")
 REGISTER_MAX_N = 64
 # The blocked route's last n: the largest at which two of its f64 blocks
 # fit on one SM (`blocked_route_bytes` in the .cu file).
 BLOCKED_MAX_N = 218
-# The streamed route holds two rows of a 32-column panel or four of a
-# 16-column one a thread (256 threads).
-STREAMED_MAX_N = 1024
-PANEL = 32
+# Dynamic and static shared memory a block may use on Hopper after opting in.
+SMEM_LIMIT = 232448
+# The streamed route's panel launch: threads a block, and the panel rows a
+# thread holds in registers for each panel width (64 entries); at most
+# MAX_CLUSTER blocks a matrix (the portable cluster size).
+THREADS = 256
+PANEL_ROWS = {32: 2, 16: 4}
+MAX_CLUSTER = 8
+# ... its update launch: staged rows of panel + 4 entries, two pivot-row
+# strips and a ring of 3 stages of 32-row chunks of M and C; the column
+# swaps: at most 4 warps, one row each.
+STREAM_PAD = 4
+STREAM_ROWS = 32
+STREAM_STAGES = 3
+UNSWAP_WARPS = 4
+
+
+class LaunchPlan(NamedTuple):
+    """What one call of the kernel is told for an ``n x n`` inverse."""
+
+    route: str
+    panel: int = 0  # streamed: columns a panel
+    blocks: int = 1  # streamed: blocks of a panel launch per matrix, a cluster above 1
+    spill: int = 0  # streamed: panel rows a block holds in L2 beyond its registers
+    panel_bytes: int = 0  # streamed: shared memory of a panel block, static included
+    update_bytes: int = 0  # ... of an update block
+    unswap_warps: int = 0  # ... rows the column swaps hold at once, one a warp
+
+
+def _round16(x: int) -> int:
+    return -(-x // 16) * 16
+
+
+def _streamed_plan(n: int, dtype: torch.dtype, panel: int, blocks: int) -> LaunchPlan:
+    """The streamed route at ``panel`` columns with ``blocks`` panel blocks
+    a matrix, as ``launch_streamed`` in the .cu file lays it out: each block
+    holds ``PANEL_ROWS[panel] * THREADS`` panel rows in registers and its
+    share of the rest in L2.  Raises ``ValueError`` where the update or the
+    column swaps do not fit in shared memory."""
+    size = torch.finfo(dtype).bits // 8
+    held = blocks * PANEL_ROWS[panel] * THREADS
+    spill = max(0, -(-(n - held) // blocks))
+    # src, then prow, oldk and the warp maxima of a whole cluster (keys and rows)
+    shared = _round16(4 * n) + 2 * panel * size + MAX_CLUSTER * (THREADS // 32) * (size + 4)
+    ld = panel + STREAM_PAD
+    update = (2 * panel * ld + STREAM_STAGES * 2 * STREAM_ROWS * ld) * size + 4 * n
+    warps = UNSWAP_WARPS
+    while warps > 1 and _round16(4 * n) + warps * n * size > SMEM_LIMIT:
+        warps //= 2
+    if max(shared, update, _round16(4 * n) + warps * n * size) > SMEM_LIMIT:
+        raise ValueError(f"gj_inverse: n={n} does not fit the streamed route's shared memory.")
+    return LaunchPlan("streamed", panel, blocks, spill, shared, update, warps)
 
 
 def route(n: int, dtype: torch.dtype) -> str:
@@ -51,18 +102,14 @@ def route(n: int, dtype: torch.dtype) -> str:
       group of 32 or 64 threads per matrix.
     - ``"blocked"``, to n = 218, while two of its f64 blocks fit on one SM:
       one block per matrix, panels of 32 columns and rank-32 tile updates.
-    - ``"streamed"``, to n = 1024: the same panel sweep in one launch and
-      the tile updates in another, for each panel, with the tiles streamed
-      through shared memory and the update on the FP64 tensor cores; panels
-      of :func:`panel_width` columns.
-    - ``"global"``, above (Navier-Stokes from p = 16, n = 1089): in place
-      in global memory, one step at a time.
+    - ``"streamed"``, every larger n: per panel, a sweep launch and a
+      tile-update launch on the FP64 tensor cores, with the tiles streamed
+      through shared memory; :func:`launch_plan` lays it out.
 
     The blocked route beats the streamed one at n=208 (E=1000 and 4096,
     f64) and loses from n=224 (f64, E=1000), where one of its blocks fills
-    an SM; ``tools/gj_inverse_ablation.py`` times both at the boundary.
-    f32 keeps the f64 boundary, though the streamed route is a few percent
-    faster there in f32 too.
+    an SM; ``tools/gj_inverse_ablation.py`` times both at the boundary and
+    the streamed layouts above n = 1024.  f32 keeps the f64 boundaries.
     """
     if n < 1:
         raise ValueError(f"gj_inverse: no route for n={n}.")
@@ -70,15 +117,25 @@ def route(n: int, dtype: torch.dtype) -> str:
         return "register"
     if n <= BLOCKED_MAX_N:
         return "blocked"
-    if n <= STREAMED_MAX_N:
-        return "streamed"
-    return "global"
+    return "streamed"
 
 
-def panel_width(n: int) -> int:
-    """Columns of a streamed panel: 32 while a thread's panel rows (n / 256
-    of them) hold at most 64 entries, 16 above n = 512."""
-    return PANEL if n <= 512 else PANEL // 2
+def launch_plan(n: int, dtype: torch.dtype) -> LaunchPlan:
+    """The route of an ``n x n`` inverse in ``dtype`` and its layout: the
+    streamed route's panels are 32 columns held in the registers of one
+    block to n = 512, 16 to n = 1024 (four rows a thread), and 32 again
+    above, over a cluster of ceil(n / 512) blocks (at most 8), whose rows
+    past 4,096 go to L2.  Raises ``ValueError`` past the streamed route's
+    largest n (19,370 in f64), where the column swaps' one row and the row
+    permutation no longer fit in shared memory."""
+    name = route(n, dtype)
+    if name != "streamed":
+        return LaunchPlan(name)
+    if n <= 2 * THREADS:
+        return _streamed_plan(n, dtype, 32, 1)
+    if n <= 4 * THREADS:
+        return _streamed_plan(n, dtype, 16, 1)
+    return _streamed_plan(n, dtype, 32, min(MAX_CLUSTER, -(-n // (2 * THREADS))))
 
 
 @functools.cache
@@ -87,7 +144,7 @@ def library() -> ctypes.CDLL:
     lib = _build.load("gj_inverse")
     for suffix in _SUFFIX.values():
         fn = getattr(lib, f"mfv2d_gj_inverse_{suffix}")
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return lib
 
@@ -115,11 +172,11 @@ def gj_inverse(a: torch.Tensor) -> torch.Tensor:
     out = torch.empty_like(a)
     if n_elem == 0 or n == 0:
         return out
-    name = route(n, a.dtype)
+    plan = launch_plan(n, a.dtype)
     info = torch.empty(n_elem, dtype=torch.int32, device=a.device)
     # The streamed route's row gather and row permutation, per matrix.
     scratch = None
-    if name == "streamed":
+    if plan.route == "streamed":
         scratch = torch.empty((2, n_elem, n), dtype=torch.int32, device=a.device)
     fn = getattr(library(), f"mfv2d_gj_inverse_{_SUFFIX[a.dtype]}")
     with torch.cuda.device(a.device):
@@ -131,8 +188,9 @@ def gj_inverse(a: torch.Tensor) -> torch.Tensor:
             ctypes.c_void_p(None if scratch is None else scratch.data_ptr()),
             n_elem,
             n,
-            ROUTES.index(name),
-            panel_width(n),
+            ROUTES.index(plan.route),
+            plan.panel,
+            plan.blocks,
             ctypes.c_void_p(stream),
         )
     if rc != 0:

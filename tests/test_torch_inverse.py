@@ -9,9 +9,10 @@ element batches against the JAX package's.  Step-by-step mirrors of the
 kernel's blocked and streamed routes (:func:`blocked_gj_mirror`) and
 register route (:func:`implicit_gj_mirror`) hold their algebra against the
 plain version and the Pallas kernel (the streamed route's at n = 460 and
-520, and on the Navier-Stokes p=10 blocks against the JAX package's blocks
-and f64 inverse), and the route rule (``kernel.route``,
-``kernel.panel_width``) is checked for every n to 1,100.
+520, at n = 1056 and 1089 with the clustered panel's 32 columns, and on the
+Navier-Stokes p=10 and p=16 blocks, the p=10 ones against the JAX
+package's blocks and f64 inverse), and the route rule and launch plan
+(``kernel.launch_plan``) are checked for every n to 4,096.
 """
 
 import math
@@ -73,7 +74,9 @@ def blocked_gj_mirror(a: torch.Tensor, b: int) -> tuple[torch.Tensor, torch.Tens
     other column tile of width ``b`` is gathered through the panel's row
     swaps and updated by the rank-b product with the panel; the row swaps
     are undone as column swaps at the end.  With ``b >= n`` there are no
-    tiles and this is the unblocked sweep of the global route.  Returns
+    tiles and this is the unblocked sweep.  How the streamed route's panel
+    launch spreads the panel's rows (registers of one block or of a
+    cluster, shared memory, L2) does not change this algebra.  Returns
     the inverses and ``info``: 0, or each matrix's first failing pivot k+1.
 
     The streamed route reads a row i outside the panel's rows K only from
@@ -240,14 +243,16 @@ def test_blocked_mirror_reports_the_unblocked_failing_pivot(b):
 
 
 @pytest.mark.parametrize(
-    "n, b", [(219, 32), (440, 32), (441, 32), (460, 32), (460, 16), (520, 16)]
+    "n, b",
+    [(219, 32), (440, 32), (441, 32), (460, 32), (460, 16), (520, 16), (1056, 32), (1089, 32)],
 )
 def test_streamed_mirror_matches_plain(n, b):
     """The streamed route's sizes: its first n in f64 (219), the first
     above the blocked route's old cap (440), the phase-10 blocks' n (441)
     and n=460, at the route's panel width and at the narrower width it
-    takes above n=512."""
-    assert b in (kernel.panel_width(n), kernel.PANEL // 2)
+    takes above n=512; and the clustered panel's n=1056 and 1089 (the p=16
+    Navier-Stokes blocks), at its 32 columns."""
+    assert b in (kernel.launch_plan(n, torch.float64).panel, 16)
     a = torch.tensor(saddle_mix(n, seed=n))
     assert torch.all(a[:2, : n // 3, : n // 3] == 0.0)
     inv, info = blocked_gj_mirror(a, b)
@@ -255,9 +260,10 @@ def test_streamed_mirror_matches_plain(n, b):
     assert rel(inv, tprec.gj_inverse_plain(a).numpy()) <= 1e-10
 
 
-def navier_stokes_p10_blocks() -> torch.Tensor:
-    """The element blocks of Navier-Stokes Re=10 on a 4x4 mesh at p=10
-    (n = 121 + 220 + 100 = 441), assembled by the port on the CPU."""
+def navier_stokes_blocks(mesh_n: int = 4, p: int = 10) -> torch.Tensor:
+    """The element blocks of Navier-Stokes Re=10 on a mesh_n x mesh_n mesh
+    at order p (n = (2p + 1)^2: 441 at p=10), assembled by the port on the
+    CPU."""
     import mfv2d_torch as mf
     from mfv2d_torch.compiler import CompiledSystem
     from mfv2d_torch.models import flow
@@ -266,7 +272,7 @@ def navier_stokes_p10_blocks() -> torch.Tensor:
 
     system = flow.navier_stokes(10.0).system
     compiled = CompiledSystem(system)
-    mesh = mf.examples.unit_square_mesh(4, 4, 10)
+    mesh = mf.examples.unit_square_mesh(mesh_n, mesh_n, p)
     disc = discretize_mesh(mesh, system.unknown_forms, TFemCache(3), device="cpu")
     evaluator = SystemEvaluator(disc.form_spec, compiled, disc)
     return torch.as_tensor(evaluator.element_matrices(compiled.lhs_blocks)[0])
@@ -292,15 +298,29 @@ def test_streamed_mirror_inverts_navier_stokes_p10_blocks():
     """The port's blocks against the JAX package's, and the mirror's
     inverse of them against the JAX package's f64 inverse
     (``newton_schulz_inverse``) and the plain version."""
-    a = navier_stokes_p10_blocks()
+    a = navier_stokes_blocks()
     assert a.shape == (16, 441, 441) and a.dtype == torch.float64
     ref_blocks = navier_stokes_p10_blocks_jax()
     assert rel(a, ref_blocks) <= 1e-12
     assert kernel.route(441, torch.float64) == "streamed"
-    inv, info = blocked_gj_mirror(a, kernel.panel_width(441))
+    inv, info = blocked_gj_mirror(a, kernel.launch_plan(441, torch.float64).panel)
     assert torch.all(info == 0)
     ref, _ = jprec.newton_schulz_inverse(jnp.asarray(ref_blocks))
     assert rel(inv, np.asarray(ref)) <= 1e-10
+    assert rel(inv, tprec.gj_inverse_plain(a).numpy()) <= 1e-10
+
+
+def test_streamed_mirror_inverts_navier_stokes_p16_blocks():
+    """The port's Navier-Stokes blocks at p=16 on a 1x1 mesh (n = 289 +
+    544 + 256 = 1089, the first model size past one block's panel), through
+    the mirror at the width of the plan's clustered panel, against the
+    plain version."""
+    a = navier_stokes_blocks(1, 16)
+    assert a.shape == (1, 1089, 1089) and a.dtype == torch.float64
+    plan = kernel.launch_plan(1089, torch.float64)
+    assert plan.route == "streamed" and plan.blocks > 1
+    inv, info = blocked_gj_mirror(a, plan.panel)
+    assert torch.all(info == 0)
     assert rel(inv, tprec.gj_inverse_plain(a).numpy()) <= 1e-10
 
 
@@ -313,25 +333,44 @@ def test_streamed_mirror_reports_the_failing_pivot(b):
 
 
 def test_route_rule_covers_every_n():
-    """Each n from 1 to 1,100 takes one route, the routes follow one another
-    in the order register, blocked, streamed, global, and each takes only
-    what its kernel holds."""
+    """Each n from 1 to 4,096 takes one route, the routes follow one another
+    in the order register, blocked, streamed, every n from 219 on takes the
+    streamed route, and its launch plan fits the kernel: at most 64 panel
+    entries a thread in registers, at most 8 panel blocks a matrix (one
+    cluster), every panel row held by one block, and each launch's shared
+    memory (as csrc/gj_inverse.cu computes it) within what a block may use."""
     for dtype in (torch.float64, torch.float32):
-        taken = [kernel.route(n, dtype) for n in range(1, 1101)]
-        assert set(taken) <= set(kernel.ROUTES)
+        size = 8 if dtype == torch.float64 else 4
+        taken = []
+        for n in range(1, 4097):
+            plan = kernel.launch_plan(n, dtype)
+            taken.append(plan.route)
+            assert kernel.route(n, dtype) == plan.route
+            if plan.route == "register":
+                assert n <= kernel.REGISTER_MAX_N
+            if plan.route == "blocked":
+                assert kernel.REGISTER_MAX_N < n <= kernel.BLOCKED_MAX_N
+            if n > kernel.BLOCKED_MAX_N:
+                assert plan.route == "streamed"
+                rows = kernel.PANEL_ROWS[plan.panel]
+                assert rows * plan.panel <= 64
+                assert (plan.panel, plan.blocks) == (
+                    (32, 1) if n <= 512 else (16, 1) if n <= 1024 else (32, -(-n // 512))
+                )
+                held = plan.blocks * rows * kernel.THREADS
+                assert plan.spill == max(0, -(-(n - held) // plan.blocks)) == 0
+                # streamed_panel_bytes and the panel kernel's static arrays,
+                # streamed_update_bytes, streamed_unswap_bytes
+                src = -(-4 * n // 16) * 16
+                static = 2 * plan.panel * size + 8 * 8 * (size + 4)
+                assert plan.panel_bytes == src + static <= kernel.SMEM_LIMIT
+                ld = plan.panel + 4
+                update = (2 * plan.panel * ld + 3 * 2 * 32 * ld) * size + 4 * n
+                assert plan.update_bytes == update <= kernel.SMEM_LIMIT
+                assert plan.unswap_warps == 4
+                assert src + 4 * n * size <= kernel.SMEM_LIMIT
         order = [kernel.ROUTES.index(r) for r in taken]
         assert order == sorted(order)
-        for n, r in enumerate(taken, start=1):
-            if r == "register":
-                assert n <= kernel.REGISTER_MAX_N
-            if r == "blocked":
-                assert kernel.REGISTER_MAX_N < n <= kernel.BLOCKED_MAX_N
-            if r == "streamed":
-                # one, two or four panel rows a thread, at most 64 entries
-                assert n <= kernel.STREAMED_MAX_N
-                assert -(-n // 256) * kernel.panel_width(n) <= 64
-            if r == "global":
-                assert n > kernel.STREAMED_MAX_N
         assert all(r == "register" for r in taken[:64])
     # Two f64 blocked blocks fit on an SM (228 KB, 1 KB kept per block)
     # up to BLOCKED_MAX_N; the ablation's boundary: blocked at 208,
@@ -342,13 +381,36 @@ def test_route_rule_covers_every_n():
     assert [2 * (blocked_bytes(n) + 1024) <= 233472 for n in (218, 219)] == [True, False]
     assert kernel.route(208, torch.float64) == "blocked"
     assert kernel.route(121, torch.float64) == "blocked"
-    for n in (224, 289, 320, 439, 441, 460, 625, 1024):
-        assert kernel.route(n, torch.float64) == "streamed"
-    for n in (460, 512, 625, 1024):
-        assert kernel.route(n, torch.float32) == "streamed"
-    assert kernel.route(1025, torch.float64) == "global"
+    assert kernel.launch_plan(1089, torch.float64)[:4] == ("streamed", 32, 3, 0)
+    assert kernel.launch_plan(2401, torch.float64)[:4] == ("streamed", 32, 5, 0)
     with pytest.raises(ValueError):
         kernel.route(0, torch.float64)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_launch_plan_spills_past_the_cluster(dtype):
+    """Above n = 4,096 a cluster of eight blocks holds 4,096 panel rows in
+    registers and each block keeps its share of the rest in L2, so the
+    panel launch's shared memory stays the row gather and the step's
+    arrays; the layout holds n until one row of the column swaps and the
+    row permutation no longer fit in shared memory (the route's name stays
+    "streamed" beyond)."""
+    size = 8 if dtype == torch.float64 else 4
+    last = kernel.SMEM_LIMIT // (4 + size)
+    while -(-4 * last // 16) * 16 + last * size > kernel.SMEM_LIMIT:
+        last -= 1
+    for n in (4097, 5000, 6000, 9000, 12000, last):
+        plan = kernel.launch_plan(n, dtype)
+        assert (plan.route, plan.panel, plan.blocks) == ("streamed", 32, 8)
+        assert 4096 + 8 * plan.spill >= n > 4096 + 8 * (plan.spill - 1)
+        src = -(-4 * n // 16) * 16
+        assert plan.panel_bytes == src + 2 * 32 * size + 8 * 8 * (size + 4) <= kernel.SMEM_LIMIT
+    assert kernel.launch_plan(4097, dtype).spill == 1
+    assert kernel.launch_plan(5000, dtype).spill == 113
+    assert kernel.launch_plan(last, dtype).unswap_warps == 1
+    with pytest.raises(ValueError, match="shared memory"):
+        kernel.launch_plan(last + 1, dtype)
+    assert kernel.route(last + 1, dtype) == kernel.route(10**6, dtype) == "streamed"
 
 
 def test_blocked_mirror_matches_gj_inverse_pallas():
@@ -367,7 +429,7 @@ def test_streamed_mirror_matches_gj_inverse_pallas(n, b):
     """test_blocked_mirror_matches_gj_inverse_pallas at streamed sizes, at
     both panel widths; the TPU kernel pads n to 512 or 640 and takes two
     levels."""
-    assert b == kernel.panel_width(n)
+    assert b == kernel.launch_plan(n, torch.float32).panel
     rng = np.random.default_rng(3)
     a = (rng.normal(size=(4, n, n)) + n * np.eye(n)).astype(np.float32)
     with jax.enable_x64(False):
@@ -482,11 +544,17 @@ def test_kernel_matches_plain_on_card(dtype):
         460: "streamed",
         625: "streamed",
         1024: "streamed",
-        1056: "global",
+        1056: "streamed",
+        1089: "streamed",
+        3585: "streamed",
+        4096: "streamed",
+        4097: "streamed",
+        5000: "streamed",
     }
     for n, route in routes.items():
         n_b = n // 3
-        a = torch.tensor(saddle_blocks(37, n - n_b, n_b, seed=n), device="cuda")
+        e = 37 if n <= 1089 else 1  # past n = 3,584 a cluster of 8, past 4,096 rows in L2
+        a = torch.tensor(saddle_blocks(e, n - n_b, n_b, seed=n), device="cuda")
         a = a.to(dtype)
         assert kernel.route(n, dtype) == route
         before = kernel.launches
