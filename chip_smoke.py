@@ -8,6 +8,8 @@ Run from the repository root:  python3 chip_smoke.py [--probe [inverse|mass]]
                   their times
   --probe mass    phases 0, 1 and 2 only: build the kernels and hold the M1
                   kernel against its plain version, with its times
+  --probe hp      phases 0, 1 and 14 only: hp refinement on the card, with
+                  both kernels timed at the refined mesh's buckets
 
 Phases (each ends in torch.cuda.synchronize(); any failure exits non-zero):
 
@@ -63,6 +65,16 @@ Phases (each ends in torch.cuda.synchronize(); any failure exits non-zero):
 13. the inverse's clustered panel on a model: steady Navier-Stokes Re=10,
    4x4 mesh, p=16, linear_solver="schur_direct" (element blocks n=1089),
    its Picard iterations against the JAX package's
+14. hp refinement: the gallery's advection-diffusion system on 32x32, p=4,
+   three rounds of the local-inverse estimator ("direct"), each round's
+   orders, unknowns, u error and error-estimate sums against the JAX
+   package's, M1 launched inside the refinement stage; the final mesh
+   solved by "direct" and "schur_direct" (agreeing to 1e-10, the u error
+   to 1e-8 of the JAX package's); M1 held against its plain version and
+   timed at every shape the phase launched it on (the estimator's fine
+   batches at p+1 among them); round 1 again, warm, under torch.profiler;
+   then the inverse timed at every bucket of the final mesh; each beside
+   its plain version, library call and bound
 
 The line before the last is the kernel report (JSON), the last line the
 device summary (JSON).
@@ -72,6 +84,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import importlib
 import re
 import shutil
 import subprocess
@@ -278,68 +291,75 @@ def phase2_kernel_vs_plain() -> list[dict]:
     timed = []
     for orders, e, path in KERNEL_TIMED:
         tb, jac = _kernel_inputs(orders, e, torch.float64, seed=1)
-        plan = mass_edge.launch_plan(
-            tb.bh.shape[0], tb.bv.shape[0], tb.w.size, torch.float64
-        )
-        # Through the wrapper (plan, output allocation, launch): one call
-        # alone, with the host's part; ten calls back to back beside it.
-        ms = _median_ms(lambda: mass_edge.mass_edge(tb, jac))
-        back_to_back_ms = _median_ms(lambda: mass_edge.mass_edge(tb, jac), calls=10)
-        plain_ms = _median_ms(lambda: plain.mass_edge(tb, jac), reps=10)
-        # The library call: one einsum over the stacked 1-form table
-        # phi[i, q, a] (bh in component 0, bv in component 1) and the
-        # [E, nq, 2, 2] metric, which it takes as given; the kernel forms
-        # the metric from the Jacobian terms itself.
-        k_hh, k_vv, k_hv = plain._edge_metric(jac, tb.w)
-        metric = torch.stack([k_hh, k_hv, k_hv, k_vv], dim=-1).unflatten(-1, (2, 2))
-        bh, bv = plain.as_like(tb.bh, k_hh), plain.as_like(tb.bv, k_hh)
-        phi = bh.new_zeros((bh.shape[0] + bv.shape[0], bh.shape[1], 2))
-        phi[: bh.shape[0], :, 0] = bh
-        phi[bh.shape[0] :, :, 1] = bv
-        def library_call():
-            return torch.einsum("iqa,eqab,jqb->eij", phi, metric, phi)
-
-        library_ms = _median_ms(library_call, reps=10)
-        out = mass_edge.mass_edge(tb, jac)
-        ref = plain.mass_edge(tb, jac)
-        library = library_call()
-        torch.cuda.synchronize()
-        max_abs = float((out - ref).abs().max())
-        err = rel_err(out, ref)
-        library_err = rel_err(library, ref)
-        if not max(err, library_err) <= KERNEL_TOL[torch.float64]:
-            raise RuntimeError(f"kernel or einsum disagrees: {err:.3e}, {library_err:.3e}")
-        n1, nq = out.shape[1], jac.det.shape[1]
-        # The least work: every output written and every Jacobian term read
-        # once; by the symmetry of M1, n1 (n1 + 1) / 2 sums of nq products.
-        bound_ms, bound_by = _bound(
-            (out.numel() + sum(t.numel() for t in jac)) * out.element_size(),
-            e * n1 * (n1 + 1) * nq,
-        )
-        table = "resident" if plan.stages == 1 else f"streamed in chunks of {plan.chunk}"
-        print(
-            f"phase 2: kernel agrees; p={orders} E={e} f64 median: kernel {ms:.4f} ms"
-            f" ({back_to_back_ms:.4f} ms per call of ten back to back),"
-            f" plain {plain_ms:.4f} ms, library einsum {library_ms:.4f} ms,"
-            f" bound {bound_ms:.4f} ms ({bound_by});"
-            f" warp tile {plan.mr}x{plan.nc}, table {table}, {plan.group} elements"
-            f" a step, {plan.warps} warps, {plan.smem_bytes} bytes of shared memory"
-        )
-        timed.append(
-            {
-                "shape": f"p={orders[0]} E={e}",
-                "launches_in": path,
-                "max_abs_err": max_abs,
-                "ms": ms,
-                "ms_back_to_back": back_to_back_ms,
-                "plain_ms": plain_ms,
-                "bound_ms": bound_ms,
-                "bound_by": bound_by,
-                "library_ms": library_ms,
-            }
-        )
-        del out, ref, library
+        timed.append(_time_mass_edge(tb, jac, f"p={orders[0]} E={e}", path, phase=2))
     return timed
+
+
+def _time_mass_edge(tb, jac, shape: str, path: str, phase: int) -> dict:
+    """M1 through the wrapper on f64 inputs, held against its plain version,
+    with its median times beside the plain version, one einsum (the library
+    call) and the bound."""
+    from mfv2d_torch.ops import mass as plain
+    from mfv2d_torch.ops.kernels import mass_edge
+
+    e = jac.det.shape[0]
+    plan = mass_edge.launch_plan(tb.bh.shape[0], tb.bv.shape[0], tb.w.size, torch.float64)
+    # Through the wrapper (plan, output allocation, launch): one call
+    # alone, with the host's part; ten calls back to back beside it.
+    ms = _median_ms(lambda: mass_edge.mass_edge(tb, jac))
+    back_to_back_ms = _median_ms(lambda: mass_edge.mass_edge(tb, jac), calls=10)
+    plain_ms = _median_ms(lambda: plain.mass_edge(tb, jac), reps=10)
+    # The library call: one einsum over the stacked 1-form table
+    # phi[i, q, a] (bh in component 0, bv in component 1) and the
+    # [E, nq, 2, 2] metric, which it takes as given; the kernel forms
+    # the metric from the Jacobian terms itself.
+    k_hh, k_vv, k_hv = plain._edge_metric(jac, tb.w)
+    metric = torch.stack([k_hh, k_hv, k_hv, k_vv], dim=-1).unflatten(-1, (2, 2))
+    bh, bv = plain.as_like(tb.bh, k_hh), plain.as_like(tb.bv, k_hh)
+    phi = bh.new_zeros((bh.shape[0] + bv.shape[0], bh.shape[1], 2))
+    phi[: bh.shape[0], :, 0] = bh
+    phi[bh.shape[0] :, :, 1] = bv
+
+    def library_call():
+        return torch.einsum("iqa,eqab,jqb->eij", phi, metric, phi)
+
+    library_ms = _median_ms(library_call, reps=10)
+    out = mass_edge.mass_edge(tb, jac)
+    ref = plain.mass_edge(tb, jac)
+    library = library_call()
+    torch.cuda.synchronize()
+    max_abs = float((out - ref).abs().max())
+    err = rel_err(out, ref)
+    library_err = rel_err(library, ref)
+    if not max(err, library_err) <= KERNEL_TOL[torch.float64]:
+        raise RuntimeError(f"kernel or einsum disagrees: {err:.3e}, {library_err:.3e}")
+    n1, nq = out.shape[1], jac.det.shape[1]
+    # The least work: every output written and every Jacobian term read
+    # once; by the symmetry of M1, n1 (n1 + 1) / 2 sums of nq products.
+    bound_ms, bound_by = _bound(
+        (out.numel() + sum(t.numel() for t in jac)) * out.element_size(),
+        e * n1 * (n1 + 1) * nq,
+    )
+    table = "resident" if plan.stages == 1 else f"streamed in chunks of {plan.chunk}"
+    print(
+        f"phase {phase}: kernel agrees; M1 {shape} f64 median: kernel {ms:.4f} ms"
+        f" ({back_to_back_ms:.4f} ms per call of ten back to back),"
+        f" plain {plain_ms:.4f} ms, library einsum {library_ms:.4f} ms,"
+        f" bound {bound_ms:.4f} ms ({bound_by});"
+        f" warp tile {plan.mr}x{plan.nc}, table {table}, {plan.group} elements"
+        f" a step, {plan.warps} warps, {plan.smem_bytes} bytes of shared memory"
+    )
+    return {
+        "shape": shape,
+        "launches_in": path,
+        "max_abs_err": max_abs,
+        "ms": ms,
+        "ms_back_to_back": back_to_back_ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": library_ms,
+    }
 
 
 def phase3_golden() -> None:
@@ -544,22 +564,45 @@ def _element_blocks(model_system, mesh) -> np.ndarray:
     return evaluator.element_matrices(compiled.lhs_blocks)[0]
 
 
-def _kernel_launches(fn, part: str) -> dict[str, int]:
+def _kernel_launches(fn, part: str) -> tuple[dict[str, int], int]:
     """The device kernels whose name holds ``part`` that one call of ``fn``
-    launched, by name, as torch.profiler's device trace counts them."""
-    from torch.profiler import ProfilerActivity, profile
+    launched, by name, as torch.profiler's device trace counts them, and
+    the number of profiler sessions that took.
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
+    Late in a long process (phase 14) the device trace loses every event
+    of some calls, torch's own kernels and copies as well as the wrapper's,
+    where early on (phase 6) it sees them all; a warm-up step recovers
+    most of them.  So each session has a warm-up step, whose calls it
+    throws away, before the one call it counts, and a session that saw
+    nothing is repeated, up to three times.
+    """
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    for session in range(1, 4):
         torch.cuda.synchronize()
-    counts = {}
-    for ev in prof.key_averages():
-        if ev.device_type == torch.autograd.DeviceType.CUDA and part in ev.key:
-            name = re.search(r"(\w*gj_\w+)", ev.key)
-            key = name.group(1) if name else ev.key
-            counts[key] = counts.get(key, 0) + ev.count
-    return counts
+        events = []
+        with profile(
+            activities=[ProfilerActivity.CUDA],
+            schedule=schedule(wait=0, warmup=1, active=1),
+            on_trace_ready=lambda done: events.extend(done.key_averages()),
+        ) as prof:
+            for _ in range(3):
+                fn()
+            torch.cuda.synchronize()
+            time.sleep(0.05)
+            prof.step()
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+        counts = {}
+        for ev in events:
+            if ev.device_type == torch.autograd.DeviceType.CUDA and part in ev.key:
+                name = re.search(r"(\w*gj_\w+)", ev.key)
+                key = name.group(1) if name else ev.key
+                counts[key] = counts.get(key, 0) + ev.count
+        if counts:
+            break
+    return counts, session
 
 
 def phase6_inverse_vs_plain() -> dict:
@@ -668,33 +711,7 @@ def phase6_inverse_vs_plain() -> dict:
 
     # The plain version is torch.linalg.inv, the one library call that
     # computes the same function: its time is both plain_ms and library_ms.
-    routes = []
-    for name in INVERSE_TIMED:
-        a = cases[name]
-        e, n = a.shape[0], a.shape[1]
-        route = gj_inverse.route(n, torch.float64)
-        ms = _median_ms(lambda: gj_inverse.gj_inverse(a))
-        library_ms = _median_ms(lambda: gj_inverse_plain(a))
-        timing = {}
-        if e <= 16 and ms < 5.0:  # a call this small and quick may be led by the launches
-            timing["ms_back_to_back"] = _median_ms(lambda: gj_inverse.gj_inverse(a), calls=10)
-            timing["library_ms_back_to_back"] = _median_ms(lambda: gj_inverse_plain(a), calls=10)
-        torch.cuda.synchronize()
-        bound_ms, bound_by = _bound(2 * a.numel() * a.element_size(), 2 * n**3 * e)
-        by_kernel = _kernel_launches(lambda: gj_inverse.gj_inverse(a), "gj_")
-        launches = sum(by_kernel.values()) or None  # None: the profiler saw no kernel
-        print(
-            f"phase 6: inverse kernel agrees; {name} f64 {route} route median:"
-            f" kernel {ms:.4f} ms, torch.linalg.inv {library_ms:.4f} ms,"
-            f" bound {bound_ms:.4f} ms ({bound_by}); kernel launches in one call"
-            f" (torch.profiler) {launches}: {by_kernel}"
-            + "".join(f", {k} {v:.4f} ms" for k, v in timing.items())
-        )
-        routes.append(
-            {"n": n, "E": e, "route": route, "ms": ms, "library_ms": library_ms,
-             "bound_ms": bound_ms, "bound_by": bound_by, "launches_per_call": launches,
-             **timing}
-        )
+    routes = [_time_inverse(cases[name], name, phase=6) for name in INVERSE_TIMED]
     for timed in routes:
         want = INVERSE_ROUTES[timed["n"]]
         if timed["route"] != want:
@@ -711,6 +728,37 @@ def phase6_inverse_vs_plain() -> dict:
         "library_ms": first["library_ms"],
         "routes": routes,
     }
+
+
+def _time_inverse(a: torch.Tensor, name: str, phase: int) -> dict:
+    """gj_inverse on an f64 batch: median times beside torch.linalg.inv (its
+    plain version and library call) and the bound, with the kernels one call
+    launches as torch.profiler counts them."""
+    from mfv2d_torch.ops.kernels import gj_inverse
+    from mfv2d_torch.ops.precision import gj_inverse_plain
+
+    e, n = a.shape[0], a.shape[1]
+    route = gj_inverse.route(n, torch.float64)
+    ms = _median_ms(lambda: gj_inverse.gj_inverse(a))
+    library_ms = _median_ms(lambda: gj_inverse_plain(a))
+    timing = {}
+    if e <= 16 and ms < 5.0:  # a call this small and quick may be led by the launches
+        timing["ms_back_to_back"] = _median_ms(lambda: gj_inverse.gj_inverse(a), calls=10)
+        timing["library_ms_back_to_back"] = _median_ms(lambda: gj_inverse_plain(a), calls=10)
+    torch.cuda.synchronize()
+    bound_ms, bound_by = _bound(2 * a.numel() * a.element_size(), 2 * n**3 * e)
+    by_kernel, sessions = _kernel_launches(lambda: gj_inverse.gj_inverse(a), "gj_")
+    launches = sum(by_kernel.values()) or None  # None: the profiler saw no kernel
+    print(
+        f"phase {phase}: inverse kernel agrees; {name} f64 {route} route median:"
+        f" kernel {ms:.4f} ms, torch.linalg.inv {library_ms:.4f} ms,"
+        f" bound {bound_ms:.4f} ms ({bound_by}); kernel launches in one call"
+        f" (torch.profiler, session {sessions}) {launches}: {by_kernel}"
+        + "".join(f", {k} {v:.4f} ms" for k, v in timing.items())
+    )
+    return {"n": n, "E": e, "route": route, "ms": ms, "library_ms": library_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "launches_per_call": launches,
+            **timing}
 
 
 def _mixed_poisson_at_size(n: int, p: int, linear_solver: str, phase: int) -> None:
@@ -1191,6 +1239,255 @@ def phase12_marches() -> dict:
     return launches
 
 
+# Phase 14: hp refinement of the gallery's advection-diffusion system
+# (examples/refinement/advdif_hp.py: nu = -0.05, its wind, exact solution and
+# source) on 32x32 at p=4, three rounds of the local-inverse estimator.  The
+# h refinement ratio makes every round both split and p-raise elements, so
+# the phase drives both branches of the refinement; on this smooth solution
+# splits do not pay, and users would not refine it so.
+HP_NU, HP_H_RATIO = -0.05, 3e-7
+# The JAX package's rounds, taken on the CPU by tools/hp_reference_rounds.py
+# (the same settings, linear_solver="direct", recon_order=4): element
+# orders, unknowns and the L2 point error of u on each round's mesh, then on
+# the mesh the third round returns.  A split halves a (4, 4) element's
+# orders, so the error on the first refined mesh is above the first
+# round's; it falls again by the final mesh.
+JAX_HP_ROUNDS = [
+    ({(4, 4): 1024}, 65280, 6.00807606499014e-08),
+    ({(2, 2): 56, (4, 4): 921, (5, 5): 89}, 68298, 9.274984153023474e-05),
+    ({(2, 2): 60, (4, 4): 903, (5, 5): 17, (6, 6): 89}, 72170, 9.441646151550937e-05),
+]
+JAX_HP_FINAL = (
+    {(2, 2): 60, (3, 3): 356, (4, 4): 902, (5, 5): 1, (6, 6): 17}, 74967, 8.238467060483821e-05
+)
+# The sum and the largest value of each round's error_estimate and
+# h_ref_cost_estimate cell data in the JAX package (the same tool).
+JAX_HP_ESTIMATES = [
+    (3.9749933674104883, 0.01551671001497418, 1.39823388071382e-05, 5.054865646198419e-08),
+    (3.975113046325623, 0.015491412799922593, 1.8677966572915708e-05, 2.2715670863349044e-07),
+    (3.9751254212964633, 0.015491412172977767, 1.801670741670464e-05, 2.491904141122855e-07),
+]
+
+
+def _hp_wind(x, y):
+    return np.stack(((3 * y - x), (2 - y + 0 * x)), axis=-1)
+
+
+def _hp_u(x, y):
+    return 2 * np.cos(np.pi / 2 * x) * np.cos(np.pi / 2 * y)
+
+
+def _hp_q(x, y):
+    return np.stack(
+        (
+            -np.pi * np.sin(np.pi / 2 * x) * np.cos(np.pi / 2 * y),
+            -np.pi * np.cos(np.pi / 2 * x) * np.sin(np.pi / 2 * y),
+        ),
+        axis=-1,
+    )
+
+
+def _hp_source(x, y):
+    return np.sum(_hp_wind(x, y) * _hp_q(x, y), axis=-1) - HP_NU * np.pi**2 * _hp_u(x, y) / 2
+
+
+def _hp_solve(mesh, linear_solver: str, refine: bool):
+    import mfv2d_torch as mf
+    from mfv2d_torch.models import transport
+    from mfv2d_torch.tracing import tracer
+
+    model = transport.linear_advection_diffusion(HP_NU, _hp_wind, _hp_u, _hp_source)
+    settings = None
+    if refine:
+        settings = mf.RefinementSettings(
+            mf.ErrorEstimateLocalInverse(model.u, 1),
+            mf.RefinementLimitElementCount(0.1, 128),
+            h_refinement_ratio=HP_H_RATIO,
+            upper_order_limit=8,
+        )
+    tracer.enable()
+    tracer.reset()
+    t0 = time.perf_counter()
+    grids, stats, out = mf.solve_system_2d(
+        mesh,
+        mf.SystemSettings(model.system),
+        mf.SolverSettings(mf.ConvergenceSettings(100, 1e-10, 0), linear_solver=linear_solver),
+        refinement_settings=settings,
+        recon_order=4,
+        device="cuda",
+    )
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    tracer.disable()
+    err = _l2_point_error(grids[-1], "u", _hp_u)
+    return grids[-1], stats, out, err, wall, dict(tracer.stages), model
+
+
+def phase14_hp() -> dict:
+    import mfv2d_torch as mf
+    orchestrator = importlib.import_module("mfv2d_torch.solve_system_2d")
+    from mfv2d_torch.compiler import CompiledSystem
+    from mfv2d_torch.ops.basis import FemCache
+    from mfv2d_torch.ops.kernels import gj_inverse, mass_edge
+    from mfv2d_torch.solver.discretization import discretize_mesh
+    from mfv2d_torch.solver.solve import SystemEvaluator
+
+    # Every M1 launch of the phase, by shape (orders, quadrature points, E):
+    # the inputs of its first launch, and its launches inside the refinement
+    # stage (the estimator's fine batches) and outside it (the solves).  Each
+    # shape is held against the plain version and timed after the rounds.
+    shapes: dict[tuple[int, int, int, int], dict] = {}
+    stage = ["solve"]
+    in_refinement = []
+    launch_m1 = mass_edge.mass_edge
+    perform = orchestrator.perform_mesh_refinement
+
+    def recording_m1(tb, jac):
+        key = (tb.p1, tb.p2, tb.w.size, jac.det.shape[0])
+        entry = shapes.setdefault(key, {"inputs": (tb, jac), "refinement": 0, "solve": 0})
+        before = mass_edge.launches
+        out = launch_m1(tb, jac)
+        entry[stage[0]] += mass_edge.launches - before
+        return out
+
+    def counting_refinement(*args, **kwargs):
+        before = mass_edge.launches
+        stage[0] = "refinement"
+        try:
+            result = perform(*args, **kwargs)
+        finally:
+            stage[0] = "solve"
+        torch.cuda.synchronize()
+        in_refinement.append(mass_edge.launches - before)
+        return result
+
+    mass_edge.mass_edge = recording_m1
+    orchestrator.perform_mesh_refinement = counting_refinement
+    mass_edge.launches = 0
+    gj_inverse.launches = 0
+    mesh = mf.examples.unit_square_mesh(32, 32, 4)
+    errors, walls, finals = [], {}, {}
+    inverse_launches = 0
+    try:
+        for i, (orders, n_total, jax_err) in enumerate(JAX_HP_ROUNDS, start=1):
+            grid, stats, mesh, err, wall, stages, _ = _hp_solve(mesh, "direct", refine=True)
+            cost = grid.cell_data["h_ref_cost_estimate"]
+            estimate = grid.cell_data["error_estimate"]
+            digest = (
+                float(estimate.sum()), float(estimate.max()), float(cost.sum()), float(cost.max())
+            )
+            print(
+                f"phase 14: hp round {i}: {stats.element_orders}, {stats.n_total_dofs}"
+                f" unknowns, u error {err!r} (the JAX package on the CPU: {jax_err!r}),"
+                f" estimates (sum, max; cost sum, max) {digest!r} (the JAX package:"
+                f" {JAX_HP_ESTIMATES[i - 1]!r}), wall {wall:.3f} s, mass_edge launches"
+                f" in the refinement stage {in_refinement[-1]}, refined mesh"
+                f" {mesh.leaf_count} leaves"
+            )
+            for name, (calls, total) in sorted(stages.items(), key=lambda kv: -kv[1][1]):
+                print(f"  stage {name:28s} {total:9.4f} s ({calls} calls)")
+            walls[f"round {i}"] = {"wall_s": wall, **{k: v[1] for k, v in stages.items()}}
+            if stats.element_orders != orders or stats.n_total_dofs != n_total:
+                raise RuntimeError(
+                    f"hp round {i}: {stats.element_orders}, {stats.n_total_dofs} unknowns;"
+                    f" the JAX package {orders}, {n_total}"
+                )
+            # 1e-8 relative, with a floor of 1e-12: the two packages' u agree
+            # to round-off, a few 1e-15 of |u| <= 2, which is already 2e-8 of
+            # the first round's error of 6e-8.
+            if not abs(err - jax_err) <= 1e-8 * jax_err + 1e-12:
+                raise RuntimeError(f"hp round {i}: u error {err!r}, the JAX package {jax_err!r}")
+            if estimate.shape != (stats.n_leaves,) or not np.isfinite(estimate).all():
+                raise RuntimeError(f"hp round {i}: error estimates {estimate.shape}")
+            if not all(
+                abs(x - ref) <= 1e-8 * abs(ref) for x, ref in zip(digest, JAX_HP_ESTIMATES[i - 1])
+            ):
+                raise RuntimeError(
+                    f"hp round {i}: estimates {digest!r}, the JAX package"
+                    f" {JAX_HP_ESTIMATES[i - 1]!r}"
+                )
+            errors.append(err)
+        orchestrator.perform_mesh_refinement = perform
+
+        for linear_solver in ("direct", "schur_direct"):
+            before = gj_inverse.launches
+            grid, stats, _, err, wall, stages, model = _hp_solve(mesh, linear_solver, refine=False)
+            finals[linear_solver] = grid
+            print(
+                f"phase 14: final mesh, {linear_solver}: {stats.element_orders},"
+                f" {stats.n_total_dofs} unknowns, u error {err!r} (the JAX package on the"
+                f" CPU: {JAX_HP_FINAL[2]!r}), wall {wall:.3f} s, gj_inverse launches"
+                f" {gj_inverse.launches - before}"
+            )
+            walls[f"final {linear_solver}"] = {
+                "wall_s": wall, **{k: v[1] for k, v in stages.items()}
+            }
+            if (stats.element_orders, stats.n_total_dofs) != JAX_HP_FINAL[:2]:
+                raise RuntimeError(f"hp final mesh: {stats.element_orders}, {stats.n_total_dofs}")
+            if not abs(err - JAX_HP_FINAL[2]) <= 1e-8 * JAX_HP_FINAL[2]:
+                raise RuntimeError(f"hp final u error {err!r}, the JAX package {JAX_HP_FINAL[2]!r}")
+            if linear_solver == "schur_direct":
+                inverse_launches = gj_inverse.launches - before
+    finally:
+        orchestrator.perform_mesh_refinement = perform
+        mass_edge.mass_edge = launch_m1
+    phase_launches = {"mass_edge": mass_edge.launches, "gj_inverse": inverse_launches}
+    gap = max(
+        float(np.abs(finals["schur_direct"].point_data[k] - finals["direct"].point_data[k]).max()
+              / np.abs(finals["direct"].point_data[k]).max())
+        for k in ("u", "q")
+    )
+    print(f"  final mesh: direct and schur_direct differ by {gap:.3e} (relative)")
+    if not gap <= 1e-10:
+        raise RuntimeError(f"the final hp solves disagree: {gap:.3e}")
+    # On this smooth solution a split halves a leaf's orders, so the first
+    # refined mesh is less accurate than the uniform one; the rounds after it
+    # must win some of that back.
+    if not err < errors[1]:
+        raise RuntimeError(f"hp: the final u error {err!r} is not below the first refined mesh's")
+    _require_launches(
+        14, mass_edge_in_refinement=min(in_refinement), gj_inverse_schur_direct=inverse_launches
+    )
+
+    # M1 at every shape the phase launched it on, against the plain version.
+    mass_timing = []
+    for (p1, p2, nq, e), entry in sorted(shapes.items()):
+        tb, jac = entry["inputs"]
+        timing = _time_mass_edge(
+            tb, jac, f"p=({p1},{p2}) nq={nq} E={e}",
+            "phase 14 (three hp rounds and the final solves)", phase=14,
+        )
+        timing["launches"] = entry["refinement"] + entry["solve"]
+        timing["launches_refinement_stage"] = entry["refinement"]
+        mass_timing.append(timing)
+    if not all(t["launches"] > 0 for t in mass_timing):
+        raise RuntimeError("phase 14 recorded an M1 shape with no launch")
+    _device_profile(
+        "phase 14, hp round 1 again, warm",
+        lambda: _hp_solve(mf.examples.unit_square_mesh(32, 32, 4), "direct", refine=True),
+    )
+
+    # The inverse of each bucket's element blocks, as "schur_direct" gives them.
+    compiled = CompiledSystem(model.system)
+    disc = discretize_mesh(mesh, model.system.unknown_forms, FemCache(3), device="cuda")
+    blocks = SystemEvaluator(disc.form_spec, compiled, disc).element_matrices(compiled.lhs_blocks)
+    inverse_timing = []
+    for bucket, block in zip(disc.buckets, blocks):
+        p1 = bucket.orders[0]
+        e = bucket.batch.n_elements
+        a = torch.tensor(block, device="cuda")
+        out, ref = gj_inverse.gj_inverse(a), torch.linalg.inv(a)
+        err = rel_err(out, ref)
+        if not err <= INVERSE_TOL[torch.float64]:
+            raise RuntimeError(f"inverse kernel disagrees at p={p1}: {err:.3e}")
+        inverse = _time_inverse(a, f"hp p={p1} blocks n={a.shape[1]} E={e}", phase=14)
+        inverse["max_abs_err"] = float((out - ref).abs().max())
+        inverse_timing.append(inverse)
+    print(f"phase 14: walls by stage (s): {json.dumps(walls)}")
+    return {"launches": phase_launches, "in_refinement": in_refinement, "mass_edge": mass_timing,
+            "gj_inverse": inverse_timing}
+
+
 # Wall seconds of each phase after the build, printed before the reports.
 PHASE_WALLS: dict[str, float] = {}
 
@@ -1210,13 +1507,16 @@ def main() -> int:
         "--probe",
         nargs="?",
         const="inverse",
-        choices=("inverse", "mass"),
-        help="phases 0 and 1, then only phase 6 (inverse, the default) or phase 2 (mass)",
+        choices=("inverse", "mass", "hp"),
+        help="phases 0 and 1, then only phase 6 (inverse, the default), 2 (mass) or 14 (hp)",
     )
     args = parser.parse_args()
 
     phase0_device()
     phase1_build()
+    if args.probe == "hp":
+        print(json.dumps(phase14_hp()))
+        return 0
     if args.probe == "inverse":
         print(json.dumps(phase6_inverse_vs_plain()))
         return 0
@@ -1237,6 +1537,7 @@ def main() -> int:
     march_launches = _timed("12", phase12_marches)
     p16_mass_launches, p16_inverse_launches = _timed("13", phase13_p16)
     mass_launches.append(p16_mass_launches)
+    hp = _timed("14", phase14_hp)
     print(f"phase walls (s): {PHASE_WALLS}")
     # One mass_edge entry per timed shape, each with the launches of the
     # main path its "launches_in" names: phases 4, 8, 10 and 13.  The
@@ -1272,6 +1573,36 @@ def main() -> int:
                 },
                 **inverse_timing,
             },
+            # Phase 14: M1 at each shape the hp rounds and the final solves
+            # launched it on, with that shape's launches (those inside the
+            # refinement stage apart); the inverse at each bucket of the final
+            # mesh, with the launches of its "schur_direct" solve.
+            *(
+                {
+                    "name": "mass_edge",
+                    "route": "cuda",
+                    "source": "mfv2d_torch/csrc/mass_edge.cu",
+                    "replaces": "mfv2d_tpu/ops/pallas_mass.py:113",
+                    "launches_phase14": hp["launches"]["mass_edge"],
+                    "launches_refinement_stage_by_round": hp["in_refinement"],
+                    **timing,
+                }
+                for timing in hp["mass_edge"]
+            ),
+            *(
+                {
+                    **timing,
+                    "name": "gj_inverse",
+                    "route": "cuda",
+                    "inverse_route": timing["route"],
+                    "source": "mfv2d_torch/csrc/gj_inverse.cu",
+                    "replaces": "mfv2d_tpu/ops/pallas_factor.py:136",
+                    "launches": hp["launches"]["gj_inverse"],
+                    "launches_in": "phase 14 (hp final mesh, schur_direct)",
+                    "plain_ms": timing["library_ms"],
+                }
+                for timing in hp["gj_inverse"]
+            ),
         ]
     }
     print(json.dumps(report))

@@ -5,8 +5,8 @@ mesh and constraints are host NumPy/SciPy; element assembly and residuals
 run as batched float64 tensor work on the CUDA device, or on the CPU where
 the caller passes ``device="cpu"``, with the 1-form mass matrix and the
 element inverses computed by hand-written CUDA kernels on the GPU.  Steady
-Picard and Newton solves and the trapezoidal time marches are ported; see
-ROADMAP.md for what is still to come.
+Picard and Newton solves, the trapezoidal time marches and hp refinement
+are ported; see ROADMAP.md for what is still to come.
 """
 
 from mfv2d_torch import examples as examples
@@ -37,6 +37,34 @@ from mfv2d_torch.compiler import system_as_string as system_as_string
 from mfv2d_torch.boundary import BoundaryCondition2DSteady as BoundaryCondition2DSteady
 from mfv2d_torch.boundary import (
     BoundaryCondition2DUnsteady as BoundaryCondition2DUnsteady,
+)
+
+# Refinement
+from mfv2d_torch.refinement import ErrorEstimateCustom as ErrorEstimateCustom
+from mfv2d_torch.refinement import ErrorEstimateExplicit as ErrorEstimateExplicit
+from mfv2d_torch.refinement import ErrorEstimateFineSolve as ErrorEstimateFineSolve
+from mfv2d_torch.refinement import (
+    ErrorEstimateL2OrderReduction as ErrorEstimateL2OrderReduction,
+)
+from mfv2d_torch.refinement import (
+    ErrorEstimateLocalInverse as ErrorEstimateLocalInverse,
+)
+from mfv2d_torch.refinement import ErrorEstimateVMS as ErrorEstimateVMS
+from mfv2d_torch.refinement import (
+    RefinementLimitElementCount as RefinementLimitElementCount,
+)
+from mfv2d_torch.refinement import (
+    RefinementLimitErrorValue as RefinementLimitErrorValue,
+)
+from mfv2d_torch.refinement import (
+    RefinementLimitUnknownCount as RefinementLimitUnknownCount,
+)
+from mfv2d_torch.refinement import RefinementSettings as RefinementSettings
+from mfv2d_torch.refinement import (
+    compute_legendre_coefficients as compute_legendre_coefficients,
+)
+from mfv2d_torch.refinement import (
+    compute_legendre_error_estimates as compute_legendre_error_estimates,
 )
 
 # Solver

@@ -20,6 +20,7 @@ the port calls the functions below directly on each bucket.
 from __future__ import annotations
 
 from collections.abc import Sequence
+from functools import lru_cache
 
 import numpy as np
 import torch
@@ -49,10 +50,13 @@ from mfv2d_torch.ops.mass import (
     TensorBasis,
     as_like,
     batch_jacobian,
+    mass_edge_double,
     mass_edge_surf,
     mass_node,
+    mass_node_double,
     mass_node_edge,
     mass_surf,
+    mass_surf_double,
     tensor_basis,
 )
 from mfv2d_torch.system import ElementFormSpecification
@@ -512,3 +516,162 @@ def apply_mass(
         m = batch.mass(order, False)
         parts.append((_mass_solve(m, v) if inverse else torch.matmul(m, v))[..., 0])
     return torch.cat(parts, dim=1)
+
+
+def compute_element_projector(
+    form_spec: ElementFormSpecification,
+    batch_in: ElementBatch,
+    batch_out: ElementBatch,
+) -> list[torch.Tensor]:
+    """Per-form L2 projection matrices from ``batch_in`` to ``batch_out``.
+
+    ``P = M_out^{-1} @ M_cross`` with cross-space mass matrices evaluated on
+    the shared integration grid (element_system.c:480-560).  Returns one
+    ``[E, n_out, n_in]`` tensor per form.  ``M_out`` is ``batch_out``'s
+    memoized mass, so a 1-form goes through the M1 kernel on CUDA tensors.
+    """
+    if batch_in.basis.integration_orders != batch_out.basis.integration_orders:
+        raise ValueError("Input and output integration rules must match.")
+    out: list[torch.Tensor] = []
+    jac = batch_in.jac
+    for _, order in form_spec:
+        if order == UnknownFormOrder.FORM_ORDER_0:
+            cross = mass_node_double(batch_in.tb, batch_out.tb, jac)
+        elif order == UnknownFormOrder.FORM_ORDER_1:
+            cross = mass_edge_double(batch_in.tb, batch_out.tb, jac)
+        elif order == UnknownFormOrder.FORM_ORDER_2:
+            cross = mass_surf_double(batch_in.tb, batch_out.tb, jac)
+        else:
+            raise ValueError(f"Invalid form order {order}.")
+        out.append(_mass_solve(batch_out.mass(order, False), cross))
+    return out
+
+
+# Elements per projector build: the build materializes quadrature
+# intermediates per element, so larger batches are built in chunks.
+PROJECTOR_CHUNK = 512
+
+
+def element_projector(
+    form_spec: ElementFormSpecification,
+    batch_in: ElementBatch,
+    batch_out: ElementBatch,
+) -> list[torch.Tensor]:
+    """:func:`compute_element_projector` in chunks of ``PROJECTOR_CHUNK``
+    elements, concatenated.
+
+    No caller in the port yet: it waits for the VMS estimator (ROADMAP
+    item 9), which uses it or removes it.
+    """
+    if batch_in.basis.integration_orders != batch_out.basis.integration_orders:
+        raise ValueError("Input and output integration rules must match.")
+    e = batch_in.n_elements
+    if e <= PROJECTOR_CHUNK:
+        return compute_element_projector(form_spec, batch_in, batch_out)
+    chunks = []
+    for lo in range(0, e, PROJECTOR_CHUNK):
+        corners = batch_in.corners_np[lo : lo + PROJECTOR_CHUNK]
+        chunks.append(
+            compute_element_projector(
+                form_spec,
+                ElementBatch(batch_in.basis, corners, batch_in.device),
+                ElementBatch(batch_out.basis, corners, batch_out.device),
+            )
+        )
+    return [torch.cat(parts, dim=0) for parts in zip(*chunks)]
+
+
+def _apply_projectors(
+    form_spec: ElementFormSpecification,
+    projectors: Sequence[torch.Tensor],
+    orders_in: tuple[int, int],
+    dofs: torch.Tensor,
+) -> torch.Tensor:
+    offsets = form_spec.form_offsets(*orders_in)
+    return torch.cat(
+        [
+            torch.matmul(p, dofs[:, offsets[i] : offsets[i + 1], None])[..., 0]
+            for i, p in enumerate(projectors)
+        ],
+        dim=1,
+    )
+
+
+def project_between(
+    form_spec: ElementFormSpecification,
+    batch_in: ElementBatch,
+    batch_out: ElementBatch,
+    dofs,
+) -> torch.Tensor:
+    """L2-project full element DoF vectors ``[E, n_in]`` from ``batch_in``'s
+    orders to ``batch_out``'s: ``[E, n_out]`` on the batches' device."""
+    dofs = torch.as_tensor(dofs, dtype=torch.float64, device=batch_in.device)
+    projectors = compute_element_projector(form_spec, batch_in, batch_out)
+    return _apply_projectors(form_spec, projectors, batch_in.orders, dofs)
+
+
+def projection_roundtrip_error(
+    form_spec: ElementFormSpecification,
+    batch: ElementBatch,
+    batch_lower: ElementBatch,
+    dofs,
+) -> torch.Tensor:
+    """``dofs - P_up(P_down(dofs))``: the order-reduction error DoFs."""
+    dofs = torch.as_tensor(dofs, dtype=torch.float64, device=batch.device)
+    down = project_between(form_spec, batch, batch_lower, dofs)
+    back = compute_element_projector(form_spec, batch_lower, batch)
+    return dofs - _apply_projectors(form_spec, back, batch_lower.orders, down)
+
+
+@lru_cache(maxsize=64)
+def _reference_inclusion_cached(spec_items, orders_in, orders_out, device):
+    from mfv2d_torch.ops.basis import FemCache
+
+    # Exact rule for the finer mass matrix: GLL with q points integrates
+    # degree 2q-3, the fine mass integrand is degree 2*p_f.
+    q1 = orders_out[0] + 3
+    q2 = orders_out[1] + 3
+    cache = FemCache(0)
+    ref_corners = np.array([[[-1.0, -1.0], [1.0, -1.0], [1.0, 1.0], [-1.0, 1.0]]])
+    batch_in = ElementBatch(cache.get_basis2d(*orders_in, q1, q2), ref_corners, device)
+    batch_out = ElementBatch(cache.get_basis2d(*orders_out, q1, q2), ref_corners, device)
+    form_spec = ElementFormSpecification(*spec_items)
+    projs = compute_element_projector(form_spec, batch_in, batch_out)
+    off_in = form_spec.form_offsets(*orders_in)
+    off_out = form_spec.form_offsets(*orders_out)
+    full = np.zeros((form_spec.total_size(*orders_out), form_spec.total_size(*orders_in)))
+    for i, p in enumerate(projs):
+        full[off_out[i] : off_out[i + 1], off_in[i] : off_in[i + 1]] = p[0].cpu().numpy()
+    return full
+
+
+def reference_inclusion_matrix(
+    form_spec: ElementFormSpecification,
+    orders_in: tuple[int, int],
+    orders_out: tuple[int, int],
+    device="cuda",
+) -> np.ndarray:
+    """Shared coarse-to-fine inclusion matrix ``[n_out, n_in]`` (NumPy f64).
+
+    For nested spaces on the same element (``orders_out >= orders_in``
+    componentwise), every coarse basis function is exactly representable in
+    the fine basis in reference space, and the bilinear map carries that
+    identity to any physical element: the L2 projector ``M_f^{-1} M_cross``
+    is the same matrix ``C`` for every element.  Computed once per (spec,
+    orders) on the reference square, on ``device``, with a quadrature rule
+    exact for the fine mass matrix.
+
+    No caller in the port yet: it waits for the VMS estimator (ROADMAP
+    item 9), which uses it or removes it.
+    """
+    if orders_out[0] < orders_in[0] or orders_out[1] < orders_in[1]:
+        raise ValueError(
+            "Inclusion requires nested spaces: output orders must be >= "
+            f"input orders ({orders_out} < {orders_in})."
+        )
+    return _reference_inclusion_cached(
+        tuple((n, int(o)) for n, o in form_spec),
+        tuple(int(o) for o in orders_in),
+        tuple(int(o) for o in orders_out),
+        str(check_device(device)),
+    ).copy()

@@ -1,7 +1,9 @@
-"""L2 projections (dual DoFs) and point reconstruction of forms.
+"""L2 projections (dual/primal DoFs) and point reconstruction of forms.
 
-All of these run in NumPy on the host: the forcing projections evaluate
-host callables, and the reconstructions feed the host output grids.
+``element_dual_dofs_batched`` and ``element_primal_dofs`` work on an
+:class:`ElementBatch` on its device.  The rest runs in NumPy on the host:
+the forcing projections evaluate host callables, and the reconstructions
+feed the host output grids and the refinement estimators.
 ``reconstruct`` works on one element at arbitrary reference points,
 ``reconstruct_batched`` on a whole bucket.  Semantics follow the reference
 (python/mfv2d/mimetic2d.py:1003-1279).
@@ -11,11 +13,14 @@ from __future__ import annotations
 
 import numpy as np
 import numpy.typing as npt
+import torch
 
-from mfv2d_torch.evaluation import ElementBatch
+from mfv2d_torch.evaluation import ElementBatch, apply_mass
 from mfv2d_torch.kform import UnknownFormOrder
 from mfv2d_torch.ops.basis import Basis2D
+from mfv2d_torch.ops.mass import as_like
 from mfv2d_torch.ops.quadrature import dlagrange1d, lagrange1d
+from mfv2d_torch.system import ElementFormSpecification
 
 
 def evaluate_function_on_batch(batch: ElementBatch, function) -> np.ndarray:
@@ -40,6 +45,35 @@ def evaluate_function_on_batch(batch: ElementBatch, function) -> np.ndarray:
     x = corners[:, :, 0] @ shapes
     y = corners[:, :, 1] @ shapes
     return np.asarray(function(x, y), np.float64)
+
+
+def element_dual_dofs_batched(
+    order: UnknownFormOrder, batch: ElementBatch, values
+) -> torch.Tensor:
+    """Dual DoFs (L2 functional values) of a function over the batch.
+
+    ``values`` are the function values at the quadrature points: shape
+    ``[E, nq]`` for 0/2-forms, ``[E, nq, 2]`` (physical x, y components) for
+    1-forms.  Returns ``[E, n_dofs]`` on the batch's device.
+
+    No caller in the port yet: it waits for the VMS estimator (ROADMAP
+    item 9), which uses it or removes it.
+    """
+    tb = batch.tb
+    jac = batch.jac
+    vals = torch.as_tensor(values, dtype=jac.det.dtype, device=jac.det.device)
+    w = as_like(tb.w, jac.det)
+    if order == UnknownFormOrder.FORM_ORDER_0:
+        return (vals * w * jac.det) @ as_like(tb.b0, jac.det).T
+    if order == UnknownFormOrder.FORM_ORDER_1:
+        f_xi = (jac.j00 * vals[..., 0] + jac.j01 * vals[..., 1]) * w
+        f_eta = (jac.j10 * vals[..., 0] + jac.j11 * vals[..., 1]) * w
+        d_h = f_eta @ as_like(tb.bh, f_eta).T
+        d_v = f_xi @ as_like(tb.bv, f_xi).T
+        return torch.cat([d_h, d_v], dim=1)
+    if order == UnknownFormOrder.FORM_ORDER_2:
+        return (vals * w) @ as_like(tb.b2, jac.det).T
+    raise ValueError(f"Invalid form order {order}.")
 
 
 def element_dual_dofs(
@@ -72,6 +106,22 @@ def element_dual_dofs(
         k = vals.reshape(e, nq) * tb.w
         return k @ tb.b2.T
     raise ValueError(f"Invalid form order {order}.")
+
+
+def element_primal_dofs(
+    order: UnknownFormOrder, batch: ElementBatch, function
+) -> torch.Tensor:
+    """Primal DoFs of a host callable over the batch: the inverse mass of
+    its order applied to its dual DoFs, on the batch's device.
+
+    No caller in the port yet: it waits for the VMS estimator (ROADMAP
+    item 9), which uses it or removes it.
+    """
+    dual = element_dual_dofs(order, batch, function)
+    spec = ElementFormSpecification(("_primal", int(order)))
+    return apply_mass(
+        spec, batch, torch.as_tensor(dual, device=batch.device), inverse=True
+    )
 
 
 def reconstruct(

@@ -13,10 +13,13 @@ Orchestrates the pipeline (reference: python/mfv2d/solve_system_2d.py):
 5. run the Picard or Newton loop (and the trapezoidal time march when
    requested): on the host over the frozen solver, or, with ``"dense"``,
    as device loops (solver/fused.py),
-6. reconstruct the output grids.
+6. reconstruct the output grids,
+7. with ``refinement_settings``, estimate the element errors and return the
+   hp-refined mesh (refinement.py).
 
-Refinement, VMS, multi-device solves and checkpoints are not ported yet and
-raise ``NotImplementedError`` naming the ROADMAP item that will port them.
+VMS (also as a refinement estimator), multi-device solves and checkpoints
+are not ported yet and raise ``NotImplementedError`` naming the ROADMAP
+item that will port them.
 """
 
 from __future__ import annotations
@@ -30,6 +33,8 @@ from mfv2d_torch.compiler import CompiledSystem
 from mfv2d_torch.kform import KEquation
 from mfv2d_torch.mesh.quadtree import Mesh
 from mfv2d_torch.ops.basis import FemCache
+from mfv2d_torch.progress import HistogramFormat
+from mfv2d_torch.refinement import ErrorEstimateVMS, perform_mesh_refinement, vms_not_ported
 from mfv2d_torch.solver.discretization import discretize_mesh
 from mfv2d_torch.solver.solve import (
     ConvergenceSettings,
@@ -49,14 +54,8 @@ from mfv2d_torch.solver.solve import (
     reconstruct_mesh_from_solution,
 )
 from mfv2d_torch.system import KFormSystem
+from mfv2d_torch.unported import not_ported
 from mfv2d_torch.vis import ReconstructedGrid
-
-
-def _not_ported(feature: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{feature} is not ported to mfv2d_torch yet (ROADMAP 'Modules still"
-        f" to port', item {item})."
-    )
 
 
 def _check_ported(
@@ -65,14 +64,17 @@ def _check_ported(
     vms_settings,
     checkpoint_settings,
 ) -> None:
-    if refinement_settings is not None:
-        raise _not_ported("refinement_settings (hp refinement)", "7")
+    # Before the solve, which the VMS estimator would only waste.
+    if refinement_settings is not None and isinstance(
+        refinement_settings.error_estimate, ErrorEstimateVMS
+    ):
+        raise vms_not_ported()
     if vms_settings is not None:
-        raise _not_ported("vms_settings (VMS)", "9")
+        raise not_ported("vms_settings (VMS)", "9")
     if solver_settings.device_mesh is not None:
-        raise _not_ported("SolverSettings.device_mesh (multi-device)", "10")
+        raise not_ported("SolverSettings.device_mesh (multi-device)", "10")
     if checkpoint_settings is not None:
-        raise _not_ported("checkpoint_settings (checkpoints)", "11")
+        raise not_ported("checkpoint_settings (checkpoints)", "11")
 
 
 
@@ -121,7 +123,9 @@ def solve_system_2d(
     a CUDA device the default raises; it never falls back to the CPU.
     Returns the reconstructed solution grids (the initial state, then the
     converged steady solution or one grid per sampled time step, each with
-    its ``time`` field), statistics, and the mesh.
+    its ``time`` field), statistics, and the mesh: with
+    ``refinement_settings`` the refined mesh, whose last grid carries the
+    ``error_estimate`` and ``h_ref_cost_estimate`` cell data.
     """
     _check_ported(solver_settings, refinement_settings, vms_settings, checkpoint_settings)
     system = system_settings.system
@@ -488,7 +492,8 @@ def solve_system_2d(
         )
     tracer.add("solve+reconstruct", time.perf_counter() - t_solve)
 
-    orders, counts = np.unique(disc.element_orders, axis=0, return_counts=True)
+    mesh_orders = disc.element_orders
+    orders, counts = np.unique(mesh_orders, axis=0, return_counts=True)
     stats = SolutionStatistics(
         element_orders={
             (int(o[0]), int(o[1])): int(c) for o, c in zip(orders, counts)
@@ -501,9 +506,50 @@ def solve_system_2d(
         iter_history=iters,
         residual_history=np.asarray(changes),
     )
+
+    output_mesh = mesh
+    if refinement_settings is not None:
+        if refinement_settings.report_order_distribution:
+            order_hist = HistogramFormat(5, 60, 5, label_format=lambda x: f"{x:.1f}")
+            geo_order = np.linalg.norm(mesh_orders, axis=1) / np.sqrt(2)
+            print("Initial mesh order distribution\n" + "=" * 60)
+            print(order_hist.format(geo_order))
+            print("=" * 60)
+
+        t_refine = time.perf_counter()
+        output_mesh, error_estimates, h_ref_cost = perform_mesh_refinement(
+            disc,
+            solution,
+            system,
+            evaluator,
+            refinement_settings.error_estimate,
+            refinement_settings.h_refinement_ratio,
+            refinement_settings.refinement_limit,
+            refinement_settings.report_error_distribution,
+            boundary_conditions if boundary_conditions is not None else [],
+            refinement_settings.upper_order_limit,
+            refinement_settings.lower_order_limit,
+            constrained_forms,
+            anisotropic_p=refinement_settings.anisotropic_p,
+        )
+        tracer.add("refinement", time.perf_counter() - t_refine)
+        resulting_grids[-1].cell_data["error_estimate"] = error_estimates
+        resulting_grids[-1].cell_data["h_ref_cost_estimate"] = h_ref_cost
+        if refinement_settings.report_order_distribution:
+            geo_order = np.linalg.norm(
+                [
+                    output_mesh.get_leaf_orders(int(ie))
+                    for ie in output_mesh.get_leaf_indices()
+                ],
+                axis=1,
+            ) / np.sqrt(2)
+            print("Refined mesh order distribution\n" + "=" * 60)
+            print(order_hist.format(geo_order))
+            print("=" * 60)
+
     if tracer.enabled:
         print(tracer.report())
-    return tuple(resulting_grids), stats, mesh
+    return tuple(resulting_grids), stats, output_mesh
 
 
 def update_system_for_time_march(

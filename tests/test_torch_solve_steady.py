@@ -193,8 +193,15 @@ def test_unported_options_raise():
     mesh, settings, solver = _mixed_poisson(tf, tpoisson)
     model = tflow.navier_stokes(10.0)
     vms = tf.VMSSettings(model.system, model.system, 1, tf.ConvergenceSettings())
+    vms_estimate = tf.ErrorEstimateVMS(
+        tpoisson.mixed_poisson().u, model.system, model.system, 1, 5, 1e-8, 1e-8
+    )
     bad_calls = [
-        dict(refinement_settings=object()),
+        dict(
+            refinement_settings=tf.RefinementSettings(
+                vms_estimate, tf.RefinementLimitElementCount(0.1, 2)
+            )
+        ),
         dict(vms_settings=vms),
         dict(checkpoint_settings=object()),
         dict(solver_settings=tf.SolverSettings(device_mesh=object())),
