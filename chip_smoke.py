@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (mfv2d_torch) on one CUDA GPU.
 
-Run from the repository root:  python3 chip_smoke.py [--probe [inverse|mass]]
+Run from the repository root:  python3 chip_smoke.py [--probe [inverse|mass|hp|vms]]
 
   --probe         phases 0, 1 and 6 only: build the kernels and hold the
                   batched inverse's routes against torch.linalg.inv, with
@@ -10,6 +10,9 @@ Run from the repository root:  python3 chip_smoke.py [--probe [inverse|mass]]
                   kernel against its plain version, with its times
   --probe hp      phases 0, 1 and 14 only: hp refinement on the card, with
                   both kernels timed at the refined mesh's buckets
+  --probe vms     phases 0, 1 and 15 only: VMS on the card, BASELINE
+                  config 5 among it, with both kernels held and timed at
+                  every shape the phase launched them on
 
 Phases (each ends in torch.cuda.synchronize(); any failure exits non-zero):
 
@@ -75,6 +78,18 @@ Phases (each ends in torch.cuda.synchronize(); any failure exits non-zero):
    batches at p+1 among them); round 1 again, warm, under torch.profiler;
    then the inverse timed at every bucket of the final mesh; each beside
    its plain version, library call and bound
+15. VMS (bench_vms.py's nonlinear flow, nu = -1, "schur_direct", Anderson
+   3, order_increase 2): (a) 8x8 p=4 through the direct-LU and the
+   matrix-free Green's operator, iterations, u error and max |vms-u|
+   against the JAX package's (tools/vms_reference.py); (b) BASELINE
+   config 5, 64x64 p=8 (+2 fine, matrix-free) at full size: at most plain
+   Picard's 17 iterations, u error <= 1e-11, max |vms-u| in (0, 1e-9],
+   its wall, tracer stages and peak memory; (c) one hp round with
+   ErrorEstimateVMS on 8x8 p=3 (+1), raised leaves and estimate sums
+   against the JAX package's; then M1 and the inverse held against their
+   plain versions and timed at every shape the phase launched them on
+   (M1 at p=8 and p=10, the inverse at n=208 and n=320, E=4096, among
+   them), beside the library call and the bound
 
 The line before the last is the kernel report (JSON), the last line the
 device summary (JSON).
@@ -295,20 +310,24 @@ def phase2_kernel_vs_plain() -> list[dict]:
     return timed
 
 
-def _time_mass_edge(tb, jac, shape: str, path: str, phase: int) -> dict:
+def _time_mass_edge(tb, jac, shape: str, path: str, phase: int, plain_max=None) -> dict:
     """M1 through the wrapper on f64 inputs, held against its plain version,
     with its median times beside the plain version, one einsum (the library
-    call) and the bound."""
+    call) and the bound.  With ``plain_max`` the plain version, whose
+    intermediates grow like p^4 an element, runs on that many elements
+    only: the kernel and the einsum on all of them."""
     from mfv2d_torch.ops import mass as plain
     from mfv2d_torch.ops.kernels import mass_edge
 
     e = jac.det.shape[0]
+    k = e if plain_max is None else min(e, plain_max)
+    jac_plain = type(jac)(*(t[:k] for t in jac))
     plan = mass_edge.launch_plan(tb.bh.shape[0], tb.bv.shape[0], tb.w.size, torch.float64)
     # Through the wrapper (plan, output allocation, launch): one call
     # alone, with the host's part; ten calls back to back beside it.
     ms = _median_ms(lambda: mass_edge.mass_edge(tb, jac))
     back_to_back_ms = _median_ms(lambda: mass_edge.mass_edge(tb, jac), calls=10)
-    plain_ms = _median_ms(lambda: plain.mass_edge(tb, jac), reps=10)
+    plain_ms = _median_ms(lambda: plain.mass_edge(tb, jac_plain), reps=10)
     # The library call: one einsum over the stacked 1-form table
     # phi[i, q, a] (bh in component 0, bv in component 1) and the
     # [E, nq, 2, 2] metric, which it takes as given; the kernel forms
@@ -325,26 +344,26 @@ def _time_mass_edge(tb, jac, shape: str, path: str, phase: int) -> dict:
 
     library_ms = _median_ms(library_call, reps=10)
     out = mass_edge.mass_edge(tb, jac)
-    ref = plain.mass_edge(tb, jac)
+    ref = plain.mass_edge(tb, jac_plain)
     library = library_call()
     torch.cuda.synchronize()
+    n1, nq = out.shape[1], jac.det.shape[1]
+    out_bytes = (out.numel() + sum(t.numel() for t in jac)) * out.element_size()
+    out, library = out[:k], library[:k]
     max_abs = float((out - ref).abs().max())
     err = rel_err(out, ref)
     library_err = rel_err(library, ref)
     if not max(err, library_err) <= KERNEL_TOL[torch.float64]:
         raise RuntimeError(f"kernel or einsum disagrees: {err:.3e}, {library_err:.3e}")
-    n1, nq = out.shape[1], jac.det.shape[1]
     # The least work: every output written and every Jacobian term read
     # once; by the symmetry of M1, n1 (n1 + 1) / 2 sums of nq products.
-    bound_ms, bound_by = _bound(
-        (out.numel() + sum(t.numel() for t in jac)) * out.element_size(),
-        e * n1 * (n1 + 1) * nq,
-    )
+    bound_ms, bound_by = _bound(out_bytes, e * n1 * (n1 + 1) * nq)
     table = "resident" if plan.stages == 1 else f"streamed in chunks of {plan.chunk}"
     print(
         f"phase {phase}: kernel agrees; M1 {shape} f64 median: kernel {ms:.4f} ms"
         f" ({back_to_back_ms:.4f} ms per call of ten back to back),"
-        f" plain {plain_ms:.4f} ms, library einsum {library_ms:.4f} ms,"
+        f" plain {plain_ms:.4f} ms" + (f" (first {k} elements)" if k < e else "")
+        + f", library einsum {library_ms:.4f} ms,"
         f" bound {bound_ms:.4f} ms ({bound_by});"
         f" warp tile {plan.mr}x{plan.nc}, table {table}, {plan.group} elements"
         f" a step, {plan.warps} warps, {plan.smem_bytes} bytes of shared memory"
@@ -356,6 +375,7 @@ def _time_mass_edge(tb, jac, shape: str, path: str, phase: int) -> dict:
         "ms": ms,
         "ms_back_to_back": back_to_back_ms,
         "plain_ms": plain_ms,
+        **({"plain_elements": k} if k < e else {}),
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": library_ms,
@@ -417,7 +437,7 @@ def phase3_golden() -> None:
     fixture = np.load(ROOT / "tests" / "golden" / "reference_fixtures.npz")
     ref = fixture["solution_mixed_poisson_4x4_p3"]
     for name, (make, tol) in solvers.items():
-        solution, _, _, _ = non_linear_solve_run(
+        solution, _, _, _, _ = non_linear_solve_run(
             20, 1.0, 1e-12, 0.0, False, evaluator, explicit_vec,
             np.zeros(disc.n_dofs), np.zeros(n_lag),
             float(np.abs(explicit_vec).max()), make(), lagrange_mat,
@@ -1488,6 +1508,304 @@ def phase14_hp() -> dict:
             "gj_inverse": inverse_timing}
 
 
+# Phase 15: VMS.  The JAX package's values on the CPU, printed by
+# `JAX_PLATFORMS=cpu python3 tools/vms_reference.py` (its docstring says
+# what each is): 15a's (iterations, u error, max |vms-u|) by branch, and
+# 15c's hp round with ErrorEstimateVMS.
+JAX_VMS_SMALL = {
+    "direct LU": (13, 5.58820878145713e-06, 1.0173060008001211e-13),
+    "matrix-free": (13, 5.588208781356068e-06, 1.2834049060894272e-13),
+}
+JAX_VMS_ESTIMATE = {
+    "iterations": 10,
+    "unknowns": 2448,
+    "raised": [0, 7, 54, 55, 56, 62, 63],
+    "digest": (
+        3.7092318877119004e-06, 2.6251514775513866e-06, 0.0026134088056780544,
+        0.00012584223044841242,
+    ),
+}
+# BASELINE config 5 (bench_vms.py) as the JAX package reached it (BENCH.md
+# section 4b; its accuracy only): 13 Picard iterations with Anderson, 17
+# without; u error 4.677495414331449e-13 (its runs 3.34e-13 to 2.28e-12);
+# max |vms-u| 9.25e-12 to 6.6e-11.  Phase 15b holds the port to plain
+# Picard's iterations and to these bounds.
+JAX_CONFIG5 = {"iterations": 13, "u_error": 4.677495414331449e-13}
+CONFIG5_MESH, CONFIG5_ORDER, CONFIG5_FINE_ORDER = 64, 8, 10
+CONFIG5_MAX_ITERATIONS = 17
+CONFIG5_MAX_U_ERROR = 1e-11
+CONFIG5_MAX_VMS = 1e-9
+# This flow's fine scales are round-off (the linear part of its advection is
+# the symmetric operator, which G' annihilates on resolved residuals): 15a
+# holds them to the JAX package's to this absolute amount.
+VMS_ROUND_OFF = 1e-12
+VMS_NU = -1.0
+
+
+def _vms_u(x, y):
+    return np.cos(np.pi / 2 * x) * np.cos(np.pi / 2 * y)
+
+
+def _vms_source(x, y):
+    qx = -np.pi / 2 * np.sin(np.pi / 2 * x) * np.cos(np.pi / 2 * y)
+    qy = -np.pi / 2 * np.cos(np.pi / 2 * x) * np.sin(np.pi / 2 * y)
+    return qx**2 + qy**2 - VMS_NU * np.pi**2 * _vms_u(x, y) / 2
+
+
+def _vms_u_skew(x, y):
+    return _vms_u(x, y) * np.exp(0.4 * x + 0.2 * y)
+
+
+def _vms_source_skew(x, y):
+    return np.exp(0.5 * x + 0.25 * y)
+
+
+def _vms_systems(u_bc, source):
+    """bench_vms.py's nonlinear flow and its symmetric (diffusion) system."""
+    import mfv2d_torch as mf
+    from mfv2d_torch.models import transport
+
+    model = transport.nonlinear_flow(VMS_NU, u_bc, source)
+    u, q = model.u, model.q
+    symmetric = mf.KFormSystem(
+        q.weight.derivative @ u - q.weight @ q == q.weight ^ u_bc,
+        VMS_NU * (u.weight @ q.derivative) == -(u.weight @ source),
+    )
+    return model, symmetric
+
+
+def _vms_solve(n: int, p: int, matrix_free: bool) -> dict:
+    """bench_vms.py's solve on an n x n mesh at order p, +2 fine (BASELINE
+    config 5 at n=64, p=8), on the card, traced."""
+    import mfv2d_torch as mf
+    from mfv2d_torch.tracing import tracer
+
+    model, symmetric = _vms_systems(_vms_u, _vms_source)
+    tracer.enable()
+    tracer.reset()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    grids, stats, _ = mf.solve_system_2d(
+        mf.examples.unit_square_mesh(n, n, p),
+        mf.SystemSettings(model.system, over_integration_order=3),
+        mf.SolverSettings(
+            mf.ConvergenceSettings(40, 1e-9, 0), linear_solver="schur_direct", anderson_m=3
+        ),
+        vms_settings=mf.VMSSettings(
+            symmetric_system=symmetric,
+            nonsymmetric_system=model.system,
+            order_increase=2,
+            fine_scale_convergence=mf.ConvergenceSettings(10, 1e-10, 1e-8),
+            matrix_free=matrix_free,
+        ),
+        recon_order=8,
+        device="cuda",
+    )
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    tracer.disable()
+    vms = grids[-1].point_data["vms-u"]
+    return {
+        "iterations": int(stats.iter_history[0]),
+        "u_error": _l2_point_error(grids[-1], "u", _vms_u),
+        "vms_max": float(np.abs(vms).max()) if np.isfinite(vms).all() else float("nan"),
+        "unknowns": int(stats.n_total_dofs),
+        "wall_s": wall,
+        "stages": {k: v[1] for k, v in tracer.stages.items()},
+        "peak_bytes": torch.cuda.max_memory_allocated(),
+    }
+
+
+class _KernelRecorder:
+    """While active, counts both kernels' launches by shape under the label
+    in ``part`` and keeps the first inputs of each shape."""
+
+    def __init__(self) -> None:
+        self.mass_edge: dict[tuple, dict] = {}  # (p1, p2, nq, E)
+        self.gj_inverse: dict[tuple, dict] = {}  # (n, E)
+        self.part = ""
+
+    def _recording(self, module, launch, table, key_of):
+        def recording(*args):
+            entry = table.setdefault(key_of(*args), {"inputs": args, "launches": {}})
+            before = module.launches
+            out = launch(*args)
+            counts = entry["launches"]
+            counts[self.part] = counts.get(self.part, 0) + module.launches - before
+            return out
+
+        return recording
+
+    def __enter__(self):
+        from mfv2d_torch.ops.kernels import gj_inverse, mass_edge
+        from mfv2d_torch.solver import iterative
+
+        self._saved = [
+            (mass_edge, "mass_edge", mass_edge.mass_edge),
+            (gj_inverse, "gj_inverse", gj_inverse.gj_inverse),
+            (iterative, "gj_inverse", iterative.gj_inverse),
+        ]
+        mass_edge.mass_edge = self._recording(
+            mass_edge, mass_edge.mass_edge, self.mass_edge,
+            lambda tb, jac: (tb.p1, tb.p2, tb.w.size, jac.det.shape[0]),
+        )
+        inv = self._recording(
+            gj_inverse, gj_inverse.gj_inverse, self.gj_inverse, lambda a: (a.shape[-1], a.shape[0])
+        )
+        gj_inverse.gj_inverse = inv
+        iterative.gj_inverse = inv
+        return self
+
+    def __exit__(self, *exc) -> None:
+        for module, name, fn in self._saved:
+            setattr(module, name, fn)
+
+
+def phase15_vms() -> dict:
+    import mfv2d_torch as mf
+    from mfv2d_torch.ops.kernels import gj_inverse, mass_edge
+
+    runs = {}
+    with _KernelRecorder() as rec:
+        # 15a: agreement with the JAX package through both Green's branches.
+        for name, matrix_free in (("direct LU", False), ("matrix-free", True)):
+            rec.part = f"15a {name}"
+            mass_edge.launches = 0
+            gj_inverse.launches = 0
+            run = _vms_solve(8, 4, matrix_free)
+            run["launches"] = {"mass_edge": mass_edge.launches, "gj_inverse": gj_inverse.launches}
+            runs[rec.part] = run
+            iters, err, vms = JAX_VMS_SMALL[name]
+            print(
+                f"phase 15a: VMS nonlinear flow 8x8 p=4 +2, {name}: {run['iterations']} Picard"
+                f" iterations, u error {run['u_error']!r}, max |vms-u| {run['vms_max']!r} (the"
+                f" JAX package on the CPU: {iters}, {err!r}, {vms!r}), wall {run['wall_s']:.3f} s"
+            )
+            _require_launches(15, **run["launches"])
+            if run["iterations"] != iters:
+                raise RuntimeError(f"15a {name}: {run['iterations']} iterations, JAX {iters}")
+            if not abs(run["u_error"] - err) <= 1e-8 * err:
+                raise RuntimeError(f"15a {name}: u error {run['u_error']!r}, JAX {err!r}")
+            if not (0 < run["vms_max"] and abs(run["vms_max"] - vms) <= VMS_ROUND_OFF):
+                raise RuntimeError(f"15a {name}: max |vms-u| {run['vms_max']!r}, JAX {vms!r}")
+
+        # 15b: BASELINE config 5 at full size.
+        rec.part = "15b config 5"
+        mass_edge.launches = 0
+        gj_inverse.launches = 0
+        run = _vms_solve(CONFIG5_MESH, CONFIG5_ORDER, True)
+        run["launches"] = {"mass_edge": mass_edge.launches, "gj_inverse": gj_inverse.launches}
+        runs[rec.part] = run
+        print(
+            f"phase 15b: BASELINE config 5, VMS nonlinear flow 64x64 p=8 +2 matrix-free:"
+            f" {run['unknowns']} unknowns, {run['iterations']} Picard iterations (the JAX"
+            f" package: {JAX_CONFIG5['iterations']}, plain Picard {CONFIG5_MAX_ITERATIONS}),"
+            f" u error {run['u_error']!r} (JAX {JAX_CONFIG5['u_error']!r}), max |vms-u|"
+            f" {run['vms_max']!r} (JAX 9.25e-12 to 6.6e-11), wall {run['wall_s']:.3f} s,"
+            f" max_memory_allocated {run['peak_bytes']} bytes"
+        )
+        for stage, total in sorted(run["stages"].items(), key=lambda kv: -kv[1]):
+            print(f"  stage {stage:60s} {total:9.4f} s")
+        _require_launches(15, **run["launches"])
+        if run["iterations"] > CONFIG5_MAX_ITERATIONS:
+            raise RuntimeError(f"config 5 took {run['iterations']} Picard iterations")
+        if not run["u_error"] <= CONFIG5_MAX_U_ERROR:
+            raise RuntimeError(f"config 5 u error {run['u_error']!r} > {CONFIG5_MAX_U_ERROR}")
+        if not 0 < run["vms_max"] <= CONFIG5_MAX_VMS:
+            raise RuntimeError(f"config 5 max |vms-u| {run['vms_max']!r}")
+
+        # 15c: one hp round with the VMS estimator.
+        rec.part = "15c hp round"
+        mass_edge.launches = 0
+        gj_inverse.launches = 0
+        model, symmetric = _vms_systems(_vms_u_skew, _vms_source_skew)
+        estimate = mf.ErrorEstimateVMS(model.u, symmetric, model.system, 1, 20, 1e-12, 1e-10)
+        t0 = time.perf_counter()
+        grids, stats, mesh = mf.solve_system_2d(
+            mf.examples.unit_square_mesh(8, 8, 3),
+            mf.SystemSettings(model.system, over_integration_order=3),
+            mf.SolverSettings(mf.ConvergenceSettings(40, 1e-9, 0)),
+            refinement_settings=mf.RefinementSettings(
+                estimate, mf.RefinementLimitElementCount(0.1, 128)
+            ),
+            recon_order=4,
+            device="cuda",
+        )
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        e = grids[-1].cell_data["error_estimate"]
+        c = grids[-1].cell_data["h_ref_cost_estimate"]
+        digest = (float(e.sum()), float(e.max()), float(c.sum()), float(c.max()))
+        orders = [tuple(mesh.get_leaf_orders(int(i))) for i in mesh.get_leaf_indices()]
+        raised = [i for i, o in enumerate(orders) if o != (3, 3)]
+        runs[rec.part] = {
+            "iterations": int(stats.iter_history[0]),
+            "unknowns": int(stats.n_total_dofs),
+            "raised": raised,
+            "digest": digest,
+            "wall_s": wall,
+            "launches": {"mass_edge": mass_edge.launches, "gj_inverse": gj_inverse.launches},
+        }
+        print(
+            f"phase 15c: hp round with ErrorEstimateVMS, 8x8 p=3 +1:"
+            f" {runs[rec.part]['iterations']} Picard iterations, {stats.n_total_dofs} unknowns,"
+            f" raised leaves {raised}, estimates (sum, max; cost sum, max) {digest!r} (the JAX"
+            f" package on the CPU: {JAX_VMS_ESTIMATE!r}), wall {wall:.3f} s"
+        )
+        _require_launches(15, **runs[rec.part]["launches"])
+        expected = {k: JAX_VMS_ESTIMATE[k] for k in ("iterations", "unknowns", "raised")}
+        if {k: runs[rec.part][k] for k in expected} != expected or not all(
+            o in ((3, 3), (4, 4)) for o in orders
+        ):
+            raise RuntimeError(f"15c: {runs[rec.part]}, JAX {JAX_VMS_ESTIMATE}")
+        if not all(abs(x - r) <= 1e-8 * abs(r) for x, r in zip(digest, JAX_VMS_ESTIMATE["digest"])):
+            raise RuntimeError(f"15c: estimates {digest!r}, JAX {JAX_VMS_ESTIMATE['digest']!r}")
+
+    # Config 5 must have run both kernels at its own shapes: M1 on the
+    # coarse (p=8) and fine (p=10) batches, the inverse on the fine blocks
+    # (n=320, streamed) and on the main and Galerkin coarse blocks (n=208,
+    # blocked), all at E=4096.
+    e5 = CONFIG5_MESH**2
+    orders = (CONFIG5_FINE_ORDER, CONFIG5_ORDER)
+    m1_keys = [k for k in rec.mass_edge if k[3] == e5 and k[0] == k[1] and k[0] in orders]
+    inverse_keys = [(2 * p * (p + 1) + p * p, e5) for p in orders]
+    for table, keys in ((rec.mass_edge, m1_keys), (rec.gj_inverse, inverse_keys)):
+        if len(keys) < 2 or not all(
+            table.get(k, {}).get("launches", {}).get("15b config 5") for k in keys
+        ):
+            raise RuntimeError(f"config 5 did not launch a kernel at {keys}: {list(table)}")
+
+    # Both kernels held against their plain versions and timed at every
+    # shape phase 15 launched them on.
+    mass_timing = []
+    for (p1, p2, nq, e), entry in sorted(rec.mass_edge.items()):
+        tb, jac = entry["inputs"]
+        timing = _time_mass_edge(
+            tb, jac, f"p=({p1},{p2}) nq={nq} E={e}", f"phase {', '.join(entry['launches'])}",
+            phase=15, plain_max=KERNEL_MAX_BATCH_HIGH if max(p1, p2) > 8 else None,
+        )
+        timing["launches"] = sum(entry["launches"].values())
+        timing["launches_by_run"] = entry["launches"]
+        mass_timing.append(timing)
+    inverse_timing = []
+    for (n, e), entry in sorted(rec.gj_inverse.items()):
+        (a,) = entry["inputs"]
+        out, ref = gj_inverse.gj_inverse(a), torch.linalg.inv(a)
+        err = rel_err(out, ref)
+        if not err <= INVERSE_TOL[torch.float64]:
+            raise RuntimeError(f"inverse kernel disagrees at n={n}, E={e}: {err:.3e}")
+        timing = _time_inverse(a, f"phase-15 blocks n={n} E={e}", phase=15)
+        timing["max_abs_err"] = float((out - ref).abs().max())
+        timing["launches"] = sum(entry["launches"].values())
+        timing["launches_by_run"] = entry["launches"]
+        timing["launches_in"] = f"phase {', '.join(entry['launches'])}"
+        inverse_timing.append(timing)
+        del out, ref
+    for run in runs.values():
+        run.pop("stages", None)
+    return {"runs": runs, "mass_edge": mass_timing, "gj_inverse": inverse_timing}
+
+
 # Wall seconds of each phase after the build, printed before the reports.
 PHASE_WALLS: dict[str, float] = {}
 
@@ -1507,8 +1825,9 @@ def main() -> int:
         "--probe",
         nargs="?",
         const="inverse",
-        choices=("inverse", "mass", "hp"),
-        help="phases 0 and 1, then only phase 6 (inverse, the default), 2 (mass) or 14 (hp)",
+        choices=("inverse", "mass", "hp", "vms"),
+        help="phases 0 and 1, then only phase 6 (inverse, the default), 2 (mass),"
+        " 14 (hp) or 15 (vms)",
     )
     args = parser.parse_args()
 
@@ -1516,6 +1835,9 @@ def main() -> int:
     phase1_build()
     if args.probe == "hp":
         print(json.dumps(phase14_hp()))
+        return 0
+    if args.probe == "vms":
+        print(json.dumps(phase15_vms()))
         return 0
     if args.probe == "inverse":
         print(json.dumps(phase6_inverse_vs_plain()))
@@ -1538,6 +1860,7 @@ def main() -> int:
     p16_mass_launches, p16_inverse_launches = _timed("13", phase13_p16)
     mass_launches.append(p16_mass_launches)
     hp = _timed("14", phase14_hp)
+    vms = _timed("15", phase15_vms)
     print(f"phase walls (s): {PHASE_WALLS}")
     # One mass_edge entry per timed shape, each with the launches of the
     # main path its "launches_in" names: phases 4, 8, 10 and 13.  The
@@ -1602,6 +1925,30 @@ def main() -> int:
                     "plain_ms": timing["library_ms"],
                 }
                 for timing in hp["gj_inverse"]
+            ),
+            # Phase 15: both kernels at each shape its VMS runs launched them
+            # on, with the launches of each run (config 5 is "15b").
+            *(
+                {
+                    "name": "mass_edge",
+                    "route": "cuda",
+                    "source": "mfv2d_torch/csrc/mass_edge.cu",
+                    "replaces": "mfv2d_tpu/ops/pallas_mass.py:113",
+                    **timing,
+                }
+                for timing in vms["mass_edge"]
+            ),
+            *(
+                {
+                    **timing,
+                    "name": "gj_inverse",
+                    "route": "cuda",
+                    "inverse_route": timing["route"],
+                    "source": "mfv2d_torch/csrc/gj_inverse.cu",
+                    "replaces": "mfv2d_tpu/ops/pallas_factor.py:136",
+                    "plain_ms": timing["library_ms"],
+                }
+                for timing in vms["gj_inverse"]
             ),
         ]
     }

@@ -5,8 +5,9 @@ mesh and constraints are host NumPy/SciPy; element assembly and residuals
 run as batched float64 tensor work on the CUDA device, or on the CPU where
 the caller passes ``device="cpu"``, with the 1-form mass matrix and the
 element inverses computed by hand-written CUDA kernels on the GPU.  Steady
-Picard and Newton solves, the trapezoidal time marches and hp refinement
-are ported; see ROADMAP.md for what is still to come.
+Picard and Newton solves, the trapezoidal time marches, hp refinement and
+VMS fine-scale estimation (``VMSSettings``, ``ErrorEstimateVMS``) are
+ported; see ROADMAP.md for what is still to come.
 """
 
 from mfv2d_torch import examples as examples

@@ -418,6 +418,20 @@ def evaluate_static_fields(batch: ElementBatch, field_keys: Sequence) -> dict:
     return out
 
 
+def _pure_mass(ops: Sequence) -> tuple[UnknownFormOrder, float] | None:
+    """``(order, k)`` of a block that is ``k`` times one mass matrix, else None."""
+    masses = [op for op in ops if type(op) is MassMat]
+    if len(masses) != 1 or masses[0].inv:
+        return None
+    k = 1.0
+    for op in ops:
+        if type(op) is Scale:
+            k *= op.k
+        elif type(op) is not MassMat:
+            return None
+    return masses[0].order, k
+
+
 def compute_element_matrices(
     form_spec: ElementFormSpecification,
     blocks: SystemBlocks,
@@ -428,9 +442,11 @@ def compute_element_matrices(
     """Full element system matrices ``[E, N, N]`` for the batch.
 
     The batched analogue of the reference ``compute_element_matrix``
-    (element_system.c:13-212).  Blocks linear in the metric go through the
-    fused pair-table plan when ``config.fused_assembly`` is on; the rest
-    through the stack machine.
+    (element_system.c:13-212).  A block that is a constant times one mass
+    matrix reads the batch's memoized mass (the M1 kernel for a 1-form on
+    CUDA tensors), which the residuals share; other blocks linear in the
+    metric go through the fused pair-table plan when
+    ``config.fused_assembly`` is on, the rest through the stack machine.
     """
     p1, p2 = batch.orders
     sizes = form_spec.form_sizes(p1, p2)
@@ -450,6 +466,10 @@ def compute_element_matrices(
         for j, block in enumerate(row):
             if block is None:
                 cols.append(det.new_zeros((batch.n_elements, sizes[i], sizes[j])))
+                continue
+            mass = _pure_mass(block)
+            if mass is not None:
+                cols.append(mass[1] * batch.mass(mass[0], False))
                 continue
             plan = try_plan(block, batch) if use_fused else None
             if plan is not None:
@@ -560,8 +580,8 @@ def element_projector(
     """:func:`compute_element_projector` in chunks of ``PROJECTOR_CHUNK``
     elements, concatenated.
 
-    No caller in the port yet: it waits for the VMS estimator (ROADMAP
-    item 9), which uses it or removes it.
+    The VMS Green's operator on hp meshes and the VMS error estimator use
+    it (:mod:`mfv2d_torch.solver.vms`, :mod:`mfv2d_torch.refinement`).
     """
     if batch_in.basis.integration_orders != batch_out.basis.integration_orders:
         raise ValueError("Input and output integration rules must match.")
@@ -661,8 +681,8 @@ def reference_inclusion_matrix(
     orders) on the reference square, on ``device``, with a quadrature rule
     exact for the fine mass matrix.
 
-    No caller in the port yet: it waits for the VMS estimator (ROADMAP
-    item 9), which uses it or removes it.
+    The VMS Green's operator uses it on meshes of one order
+    (:mod:`mfv2d_torch.solver.vms`).
     """
     if orders_out[0] < orders_in[0] or orders_out[1] < orders_in[1]:
         raise ValueError(

@@ -56,8 +56,9 @@ def element_dual_dofs_batched(
     ``[E, nq]`` for 0/2-forms, ``[E, nq, 2]`` (physical x, y components) for
     1-forms.  Returns ``[E, n_dofs]`` on the batch's device.
 
-    No caller in the port yet: it waits for the VMS estimator (ROADMAP
-    item 9), which uses it or removes it.
+    The counterpart of the JAX package's public function of that name; no
+    path of the port calls it (the solvers project host callables with
+    :func:`element_dual_dofs`).
     """
     tb = batch.tb
     jac = batch.jac
@@ -114,8 +115,8 @@ def element_primal_dofs(
     """Primal DoFs of a host callable over the batch: the inverse mass of
     its order applied to its dual DoFs, on the batch's device.
 
-    No caller in the port yet: it waits for the VMS estimator (ROADMAP
-    item 9), which uses it or removes it.
+    The counterpart of the JAX package's public function of that name; no
+    path of the port calls it.
     """
     dual = element_dual_dofs(order, batch, function)
     spec = ElementFormSpecification(("_primal", int(order)))

@@ -9,7 +9,9 @@ h-refinement cost comes from the high-mode energy quadrants.
 The projections, fine element systems and local solves run batched over
 order buckets on the device of the coarse discretization; reconstruction
 and the Legendre measures are NumPy on the host.  The VMS estimator
-(``ErrorEstimateVMS``) is not ported yet and raises ``NotImplementedError``.
+(``ErrorEstimateVMS``) builds its element matrices and projectors on that
+device too and solves its two Green's saddles by host SuperLU, as the
+reference does.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ from mfv2d_torch.evaluation import (
     ElementBatch,
     compute_element_matrices,
     compute_element_vectors,
+    element_projector,
     evaluate_static_fields,
     project_between,
     projection_roundtrip_error,
@@ -49,10 +52,13 @@ from mfv2d_torch.projection import (
     _physical_coordinates_np,
     reconstruct_batched,
 )
-from mfv2d_torch.solver.discretization import Discretization
+from mfv2d_torch.solver.discretization import Discretization, per_leaf
 from mfv2d_torch.solver.solve import SystemEvaluator, compute_element_rhs_bucket
 from mfv2d_torch.system import ElementFormSpecification, KFormSystem
-from mfv2d_torch.unported import not_ported
+from mfv2d_torch.utils.lazy import lazy_module
+
+sp = lazy_module("scipy.sparse")
+sla = lazy_module("scipy.sparse.linalg")
 
 
 def _mode_norms(order_1: int, order_2: int) -> npt.NDArray[np.float64]:
@@ -232,8 +238,7 @@ class ErrorEstimateFineSolve:
 
 @dataclass(frozen=True)
 class ErrorEstimateVMS:
-    """Variational multi-scale fine-scale error estimation (not ported yet:
-    refinement with it raises ``NotImplementedError``)."""
+    """Variational multi-scale fine-scale error estimation."""
 
     target_form: KFormUnknown
     symmetric_system: KFormSystem
@@ -273,11 +278,6 @@ class RefinementSettings:
 # ---------------------------------------------------------------------------
 # Estimators
 # ---------------------------------------------------------------------------
-
-
-def vms_not_ported() -> NotImplementedError:
-    """The error for the VMS estimator, which waits for ROADMAP item 9."""
-    return not_ported("ErrorEstimateVMS (the VMS error estimator)", "9")
 
 
 def error_estimate_with_custom_estimator(
@@ -427,7 +427,7 @@ def error_estimate_with_fine_solve(
     explicit_vec = (
         forcing if lagrange_mat is None else np.concatenate((forcing, lagrange_vec))
     )
-    fine_solution, _, _, _ = non_linear_solve_run(
+    fine_solution, _, _, _, _ = non_linear_solve_run(
         estimator.max_iterations,
         1.0,
         estimator.tolerance,
@@ -600,12 +600,14 @@ def _fine_residuals(
     """Fine-space residual r = rhs_f - LHS_f(P u) per bucket (+ weak BCs).
 
     Returns the fine batches (on the coarse batches' device), the projected
-    solutions per bucket (device tensors) and the residuals per bucket
-    (host arrays, where the weak boundary terms are added).
+    solutions per bucket (device tensors), the residuals per bucket (host
+    arrays, where the weak boundary terms are added) and the offsets of the
+    leaves in a flat fine vector of leaf order.
     """
     fine_batches: list[ElementBatch] = []
     projected: list[torch.Tensor] = []
     residuals: list[np.ndarray] = []
+    fine_sizes = np.zeros(disc.n_leaves, np.int64)
 
     for bucket in disc.buckets:
         p1, p2 = bucket.orders
@@ -631,6 +633,7 @@ def _fine_residuals(
                 static_fields=statics,
             )
         residuals.append(fine_rhs - fine_forcing.cpu().numpy())
+        fine_sizes[bucket.leaf_ranks] = disc.form_spec.total_size(*fine_batch.orders)
 
     # Weak-BC contributions on the fine mesh boundary, added in place through
     # per-leaf views of the bucket residuals.
@@ -681,7 +684,7 @@ def _fine_residuals(
     finally:
         mesh.uniform_p_change(-order_increase, -order_increase)
 
-    return fine_batches, projected, residuals
+    return fine_batches, projected, residuals, np.concatenate([[0], np.cumsum(fine_sizes)])
 
 
 def _local_lagrange_rows(
@@ -743,7 +746,7 @@ def error_estimate_with_local_inversion(
     href_cost = np.empty(disc.n_leaves)
     dir_cost = np.ones((disc.n_leaves, 2))
 
-    fine_batches, projected, residuals = _fine_residuals(
+    fine_batches, projected, residuals, _ = _fine_residuals(
         disc, system, compiled, solution, order_increase, boundary_conditions
     )
 
@@ -782,6 +785,158 @@ def error_estimate_with_local_inversion(
             target.order,
             fine_sol[:, off : off + count].cpu().numpy(),
             local_error[:, off : off + count].cpu().numpy(),
+        )
+        element_error[bucket.leaf_ranks] = l2
+        href_cost[bucket.leaf_ranks] = hc
+        dir_cost[bucket.leaf_ranks] = dc
+    return element_error, href_cost, dir_cost
+
+
+def error_estimate_with_vms(
+    disc: Discretization,
+    solution: np.ndarray,
+    system: KFormSystem,
+    compiled: CompiledSystem,
+    boundary_conditions: Sequence[BoundaryCondition2DSteady],
+    estimator: ErrorEstimateVMS,
+    constrained_forms: Sequence[tuple[float, KFormUnknown]],
+) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Global fine-scale VMS estimate (reference refinement.py:1387-1662).
+
+    The fine-space residual of the projected solution is iterated through
+    the fine-scale Green's function G' = A_f^{-1} - P A_c^{-1} P^T against
+    the non-symmetric operator; the target form's fine scales, turned into
+    primal DoFs by the fine inverse mass, are the error.  Element matrices,
+    projectors and inverse masses are built on the device; the two saddle
+    factorizations and the iteration are host SuperLU and CSR products.
+    """
+    from mfv2d_torch.continuity import add_system_constraints
+
+    target = estimator.target_form
+    if target not in system.unknown_forms:
+        raise ValueError(f"Target unknown form {target} is not in the system.")
+    for name, sub in (
+        ("symmetric", estimator.symmetric_system),
+        ("nonsymmetric", estimator.nonsymmetric_system),
+    ):
+        if sub.unknown_forms != system.unknown_forms:
+            raise ValueError(f"Unknown forms of {name} system do not match.")
+
+    form_specs = disc.form_spec
+    order_increase = estimator.order_increase
+    compiled_sym = CompiledSystem(estimator.symmetric_system)
+    compiled_nonsym = CompiledSystem(estimator.nonsymmetric_system)
+
+    # The reference dual-projects the coarse forcing; the direct fine-space
+    # residual of the projected solution agrees on resolved scales.
+    fine_batches, projected, residuals, fine_offsets = _fine_residuals(
+        disc, system, compiled, solution, order_increase, boundary_conditions
+    )
+
+    def matrices(compiled_blocks: CompiledSystem, batch: ElementBatch) -> np.ndarray:
+        return (
+            compute_element_matrices(
+                form_specs,
+                compiled_blocks.lhs_blocks,
+                batch,
+                static_fields=evaluate_static_fields(batch, compiled_blocks.fields),
+            )
+            .cpu()
+            .numpy()
+        )
+
+    sym_coarse, sym_fine, nonsym_fine, projectors = [], [], [], []
+    for bucket, fine_batch in zip(disc.buckets, fine_batches):
+        sym_coarse.append(matrices(compiled_sym, bucket.batch))
+        sym_fine.append(matrices(compiled_sym, fine_batch))
+        nonsym_fine.append(matrices(compiled_nonsym, fine_batch))
+        orders_c, orders_f = bucket.orders, fine_batch.orders
+        off_c = form_specs.form_offsets(*orders_c)
+        off_f = form_specs.form_offsets(*orders_f)
+        big = np.zeros(
+            (bucket.batch.n_elements, form_specs.total_size(*orders_f), off_c[-1])
+        )
+        for i, proj in enumerate(element_projector(form_specs, bucket.batch, fine_batch)):
+            big[:, off_f[i] : off_f[i + 1], off_c[i] : off_c[i + 1]] = proj.cpu().numpy()
+        projectors.append(big)
+
+    mesh = disc.mesh
+    mesh.uniform_p_change(order_increase, order_increase)
+    try:
+        fine_lag_mat, fine_lag_vec = add_system_constraints(
+            system,
+            mesh,
+            disc.basis_cache,
+            constrained_forms,
+            boundary_conditions,
+            disc.leaf_indices,
+            fine_offsets,
+            None,
+        )
+    finally:
+        mesh.uniform_p_change(-order_increase, -order_increase)
+    coarse_lag_mat, coarse_lag_vec = add_system_constraints(
+        system,
+        mesh,
+        disc.basis_cache,
+        constrained_forms,
+        boundary_conditions,
+        disc.leaf_indices,
+        disc.element_offsets,
+        None,
+    )
+
+    def saddle_lu(blocks, lag_mat):
+        block = sp.block_diag(per_leaf(disc, blocks))
+        if lag_mat is not None:
+            block = sp.block_array([[block, lag_mat.T], [lag_mat, None]], format="csc")
+        return sla.splu(sp.csc_matrix(block))
+
+    fine_decomp = saddle_lu(sym_fine, fine_lag_mat)
+    coarse_decomp = saddle_lu(sym_coarse, coarse_lag_mat)
+    n_lag_fine = fine_lag_vec.size
+    n_lag_coarse = coarse_lag_vec.size
+    nonsym_op = sp.block_diag(per_leaf(disc, nonsym_fine), format="csr")
+    projector = sp.block_diag(per_leaf(disc, projectors), format="csr")
+    residual = np.concatenate(per_leaf(disc, residuals))
+
+    def greens(x):
+        rf = fine_decomp.solve(np.pad(x, (0, n_lag_fine)))[: x.size]
+        xc = x @ projector
+        rc = coarse_decomp.solve(np.pad(xc, (0, n_lag_coarse)))
+        return rf - projector @ rc[: xc.size]
+
+    agr = nonsym_op @ greens(residual)
+    u = residual
+    for _ in range(estimator.max_iters):
+        u_new = agr - nonsym_op @ greens(u)
+        max_du = np.abs(u - u_new).max()
+        max_u = np.abs(u_new).max()
+        u = u_new
+        if max_du < max_u * estimator.rtol or max_du < estimator.atol:
+            break
+
+    element_error = np.empty(disc.n_leaves)
+    href_cost = np.empty(disc.n_leaves)
+    dir_cost = np.ones((disc.n_leaves, 2))
+    unknown_index = form_specs.index(target)
+    for bucket, fine_batch, fine_sol in zip(disc.buckets, fine_batches, projected):
+        pf = fine_batch.orders
+        off = form_specs.form_offset(unknown_index, *pf)
+        count = form_specs.form_size(unknown_index, *pf)
+        local = fine_offsets[bucket.leaf_ranks][:, None] + off + np.arange(count)[None, :]
+        m_inv = fine_batch.mass(target.order, True)
+        fine_scales = torch.as_tensor(u[local], dtype=m_inv.dtype, device=m_inv.device)
+        target_dofs = torch.matmul(m_inv, fine_scales[..., None])[..., 0]
+        p1, p2 = bucket.orders
+        l2, hc, dc = _bucket_measures(
+            fine_batch.basis,
+            p1,
+            p2,
+            bucket.batch.corners_np,
+            target.order,
+            fine_sol[:, off : off + count].cpu().numpy(),
+            target_dofs.cpu().numpy(),
         )
         element_error[bucket.leaf_ranks] = l2
         href_cost[bucket.leaf_ranks] = hc
@@ -964,7 +1119,15 @@ def perform_mesh_refinement(
             disc, solution, system, boundary_conditions, constrained, error_estimator
         )
     elif isinstance(error_estimator, ErrorEstimateVMS):
-        raise vms_not_ported()
+        element_error, href_cost, dir_cost = error_estimate_with_vms(
+            disc,
+            solution,
+            system,
+            evaluator.compiled,
+            boundary_conditions,
+            error_estimator,
+            constrained,
+        )
     else:
         raise TypeError(
             f"Invalid type for error estimator {type(error_estimator).__name__}"

@@ -17,9 +17,10 @@ Orchestrates the pipeline (reference: python/mfv2d/solve_system_2d.py):
 7. with ``refinement_settings``, estimate the element errors and return the
    hp-refined mesh (refinement.py).
 
-VMS (also as a refinement estimator), multi-device solves and checkpoints
-are not ported yet and raise ``NotImplementedError`` naming the ROADMAP
-item that will port them.
+With ``vms_settings`` the Picard loop carries the VMS fine scales
+(solver/vms.py) and the output grids their ``vms-<form>`` point data.
+Multi-device solves and checkpoints are not ported yet and raise
+``NotImplementedError`` naming the ROADMAP item that will port them.
 """
 
 from __future__ import annotations
@@ -34,7 +35,7 @@ from mfv2d_torch.kform import KEquation
 from mfv2d_torch.mesh.quadtree import Mesh
 from mfv2d_torch.ops.basis import FemCache
 from mfv2d_torch.progress import HistogramFormat
-from mfv2d_torch.refinement import ErrorEstimateVMS, perform_mesh_refinement, vms_not_ported
+from mfv2d_torch.refinement import perform_mesh_refinement
 from mfv2d_torch.solver.discretization import discretize_mesh
 from mfv2d_torch.solver.solve import (
     ConvergenceSettings,
@@ -58,24 +59,42 @@ from mfv2d_torch.unported import not_ported
 from mfv2d_torch.vis import ReconstructedGrid
 
 
-def _check_ported(
-    solver_settings: SolverSettings,
-    refinement_settings,
-    vms_settings,
-    checkpoint_settings,
-) -> None:
-    # Before the solve, which the VMS estimator would only waste.
-    if refinement_settings is not None and isinstance(
-        refinement_settings.error_estimate, ErrorEstimateVMS
-    ):
-        raise vms_not_ported()
-    if vms_settings is not None:
-        raise not_ported("vms_settings (VMS)", "9")
+def _check_ported(solver_settings: SolverSettings, checkpoint_settings) -> None:
     if solver_settings.device_mesh is not None:
         raise not_ported("SolverSettings.device_mesh (multi-device)", "10")
     if checkpoint_settings is not None:
         raise not_ported("checkpoint_settings (checkpoints)", "11")
 
+
+def _check_vms_settings(
+    system_settings: SystemSettings, vms_settings: VMSSettings | None
+) -> None:
+    if vms_settings is None:
+        return
+    system = system_settings.system
+    for name, sub in (
+        ("symmetric", vms_settings.symmetric_system),
+        ("nonsymmetric", vms_settings.nonsymmetric_system),
+    ):
+        if sub.unknown_forms != system.unknown_forms:
+            raise ValueError(
+                f"VMS {name} system does not contain the same forms in the"
+                " matching order as the full system."
+            )
+    if vms_settings.order_increase > system_settings.over_integration_order:
+        raise ValueError("VMS order increase exceeds the over-integration order.")
+
+
+def _vms_to_coarse(sg_operator, fine_scales, disc):
+    """Project fine-scale VMS results to coarse dual DoFs for output.
+
+    The reference slices the fine-space vector with coarse offsets
+    (solve_system.py:233-239), which misaligns for order_increase > 0; the
+    dual projection is the consistent restriction.
+    """
+    if fine_scales is None or sg_operator is None:
+        return None
+    return sg_operator.fine_results_to_coarse_dofs(fine_scales, dual=True)[: disc.n_dofs]
 
 
 
@@ -127,7 +146,8 @@ def solve_system_2d(
     ``refinement_settings`` the refined mesh, whose last grid carries the
     ``error_estimate`` and ``h_ref_cost_estimate`` cell data.
     """
-    _check_ported(solver_settings, refinement_settings, vms_settings, checkpoint_settings)
+    _check_ported(solver_settings, checkpoint_settings)
+    _check_vms_settings(system_settings, vms_settings)
     system = system_settings.system
     constrained_forms = system_settings.constrained_forms
     boundary_conditions = system_settings.boundary_conditions
@@ -196,6 +216,12 @@ def solve_system_2d(
         raise ValueError(
             "TimeDependent interior-product (operator) fields require"
             " time_settings."
+        )
+    if has_td_fields and vms_settings is not None:
+        raise NotImplementedError(
+            "TimeDependent operator fields with vms_settings are not"
+            " supported: the fine-scale operator would need per-step"
+            " reconstruction.  March without VMS, or freeze the field."
         )
 
     if system_settings.initial_conditions:
@@ -272,6 +298,21 @@ def solve_system_2d(
     )
     tracer.add("factorize", time.perf_counter() - t_factor)
 
+    sg_operator = None
+    if vms_settings is not None:
+        from mfv2d_torch.solver.vms import SuyashGreenOperator
+
+        with tracer.stage("vms-init"):
+            sg_operator = SuyashGreenOperator(
+                system,
+                vms_settings,
+                disc,
+                evaluator,
+                constrained_forms,
+                boundary_conditions if boundary_conditions is not None else [],
+            )
+    fine_scales = None
+
     t_solve = time.perf_counter()
     global_lagrange = np.zeros_like(lagrange_vec)
     max_mag = float(np.abs(explicit_vec).max())
@@ -287,10 +328,11 @@ def solve_system_2d(
     resulting_grids: list[ReconstructedGrid] = [grid]
 
     # The dense solver runs its loops on the device (solver/fused.py) unless
-    # something forces a host loop: per-iteration output, or a march whose
-    # boundary values, forcing or operator change with time.
+    # something forces a host loop: VMS, per-iteration output, or a march
+    # whose boundary values, forcing or operator change with time.
     fused = (
         solver_settings.linear_solver == "dense"
+        and sg_operator is None
         and not print_residual
         and not has_unsteady_bcs
         and not has_td_rhs
@@ -410,7 +452,13 @@ def solve_system_2d(
                 max_mag = float(np.abs(explicit_vec).max())
             current_carry = 2 / dt * old_solution_carry + time_carry_term
 
-            solution, global_lagrange, iter_cnt, max_residual = non_linear_solve_run(
+            (
+                solution,
+                global_lagrange,
+                iter_cnt,
+                max_residual,
+                fine_scales,
+            ) = non_linear_solve_run(
                 max_iterations,
                 relax,
                 atol,
@@ -427,6 +475,8 @@ def solve_system_2d(
                 time_carry_index_array=time_carry_index_array,
                 time_carry_term=current_carry,
                 newton=newton,
+                fine_scales=fine_scales,
+                sg_operator=sg_operator,
             )
             changes[time_index] = float(max_residual)
             iters[time_index] = iter_cnt
@@ -439,7 +489,9 @@ def solve_system_2d(
             old_solution_carry = new_solution_carry
 
             if (time_index % time_settings.sample_rate) == 0 or time_index + 1 == nt:
-                grid = reconstruct_mesh_from_solution(disc, recon_order, solution)
+                grid = reconstruct_mesh_from_solution(
+                    disc, recon_order, solution, _vms_to_coarse(sg_operator, fine_scales, disc)
+                )
                 grid.field_data["time"] = np.array([t_next])
                 resulting_grids.append(grid)
 
@@ -468,7 +520,13 @@ def solve_system_2d(
                 global_lagrange, max_iterations, relax, atol, rtol, max_mag, **extra,
             )
         else:
-            solution, global_lagrange, iter_cnt, all_residuals = non_linear_solve_run(
+            (
+                solution,
+                global_lagrange,
+                iter_cnt,
+                all_residuals,
+                fine_scales,
+            ) = non_linear_solve_run(
                 max_iterations,
                 relax,
                 atol,
@@ -484,11 +542,15 @@ def solve_system_2d(
                 return_all_residuals=True,
                 anderson_m=solver_settings.anderson_m,
                 newton=newton,
+                fine_scales=fine_scales,
+                sg_operator=sg_operator,
             )
         changes = np.asarray(all_residuals)[:iter_cnt]
         iters = np.array((iter_cnt,), np.uint32)
         resulting_grids.append(
-            reconstruct_mesh_from_solution(disc, recon_order, solution)
+            reconstruct_mesh_from_solution(
+                disc, recon_order, solution, _vms_to_coarse(sg_operator, fine_scales, disc)
+            )
         )
     tracer.add("solve+reconstruct", time.perf_counter() - t_solve)
 

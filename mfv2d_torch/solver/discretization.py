@@ -116,3 +116,13 @@ def scatter_bucket_vectors(disc: Discretization, per_bucket: list[np.ndarray]) -
 def gather_bucket_vectors(disc: Discretization, solution: np.ndarray) -> list[np.ndarray]:
     """Slice the global DoF vector into per-bucket ``[E, n]`` batches."""
     return [np.asarray(solution)[bucket.gather] for bucket in disc.buckets]
+
+
+def per_leaf(disc: Discretization, per_bucket) -> list:
+    """Per-bucket ``[E, ...]`` batches as one list in leaf order."""
+    out: list = [None] * disc.n_leaves
+    for bucket, arr in zip(disc.buckets, per_bucket):
+        for j, rank in enumerate(bucket.leaf_ranks):
+            out[int(rank)] = arr[j]
+    assert all(item is not None for item in out)
+    return out

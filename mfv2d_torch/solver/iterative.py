@@ -30,7 +30,8 @@ Not ported from the JAX module, and the ROADMAP entry that covers each:
 - The lean-blocks / slice-provider and device-Green's machinery
   (``_bucket_block_chunks`` providers, ``_lean_inverse_build``,
   ``refine_floor``, ``relax_refine_rounds``, ``_dev_greens_*``): "Do not
-  port"; the VMS consumer is module item 9.
+  port".  The VMS Green's operator (:mod:`mfv2d_torch.solver.vms`) keeps
+  its saddle blocks on the device and needs none of it.
 - The f32, f32x2 and condensed-c32/c64 operator tables and their applies,
   ``trace_indefinite`` and the mixed TPU ladder (``_mixed_sweep_factory``,
   ``_solve_schur_mixed_tpu``), with ``solver/krylov.py`` that only they and
@@ -78,25 +79,38 @@ class BlockSaddleSystem:
     Parameters
     ----------
     disc : Discretization
-        Bucketed mesh discretization (supplies the gather maps and device).
-    element_matrices : list of [E, n, n] arrays
-        Per-bucket element matrix batches.
+        Bucketed mesh discretization, or any object with ``n_dofs`` and
+        ``buckets`` whose entries carry a ``gather`` map (the VMS Green's
+        operator passes such a stand-in for its fine space).
+    element_matrices : list of [E, n, n] arrays or tensors
+        Per-bucket element matrix batches; tensors already on ``device`` are
+        used as they are, without a copy.
     lagrange_mat : scipy CSR or None
         Constraint matrix G over the global DoF vector.
+    device : torch.device, optional
+        Where the blocks live; by default the device of the first bucket's
+        element batch.
+    min_refine_rounds : int
+        Residual refinement rounds every apply runs at least, whatever the
+        probe chooses.
     """
 
     def __init__(
         self,
         disc: Discretization,
-        element_matrices: list[np.ndarray],
+        element_matrices: list,
         lagrange_mat: sp.csr_array | None,
+        device=None,
+        min_refine_rounds: int = 0,
     ) -> None:
         from mfv2d_torch.tracing import tracer
 
         self.disc = disc
         self.n_dofs = disc.n_dofs
         self.lagrange_mat = lagrange_mat
-        self.device = disc.buckets[0].batch.device
+        self.device = (
+            disc.buckets[0].batch.device if device is None else torch.device(device)
+        )
         self.blocks = [self._tensor(m) for m in element_matrices]
         # Explicit f64 inverses from the pivoted kernel; the probe picks the
         # refinement rounds each apply runs (normally zero).
@@ -105,6 +119,7 @@ class BlockSaddleSystem:
         for i, b in enumerate(self.blocks):
             inv = gj_inverse(b)
             rounds, err = choose_refine_rounds(b, inv)
+            rounds = max(rounds, min_refine_rounds)
             self.inverses.append(inv)
             self._refine_rounds.append(rounds)
             if tracer.enabled:
@@ -677,9 +692,11 @@ def make_block_saddle_system(
     disc: Discretization,
     element_matrices: list,
     lagrange_mat: sp.csr_array | None,
+    device=None,
+    min_refine_rounds: int = 0,
 ) -> BlockSaddleSystem:
     """BlockSaddleSystem with the element blocks stored on the device."""
-    return BlockSaddleSystem(disc, element_matrices, lagrange_mat)
+    return BlockSaddleSystem(disc, element_matrices, lagrange_mat, device, min_refine_rounds)
 
 
 class IterativeSaddleSolver:

@@ -37,7 +37,7 @@ from mfv2d_torch.kform import (
 from mfv2d_torch.mimetic import vtk_lagrange_ordering
 from mfv2d_torch.progress import ProgressTracker
 from mfv2d_torch.projection import element_dual_dofs
-from mfv2d_torch.solver.discretization import Discretization, OrderBucket
+from mfv2d_torch.solver.discretization import Discretization, OrderBucket, per_leaf
 from mfv2d_torch.system import ElementFormSpecification, KFormSystem
 from mfv2d_torch.utils.lazy import lazy_module
 from mfv2d_torch.vis import VTK_LAGRANGE_QUADRILATERAL, ReconstructedGrid
@@ -312,12 +312,7 @@ class SystemEvaluator:
 
     def matrices_per_leaf(self, matrices: list[np.ndarray]) -> list[np.ndarray]:
         """Reorder per-bucket matrix batches into leaf order."""
-        out: list[np.ndarray | None] = [None] * self.disc.n_leaves
-        for bucket, mats in zip(self.disc.buckets, matrices):
-            for j, rank in enumerate(bucket.leaf_ranks):
-                out[int(rank)] = mats[j]
-        assert all(m is not None for m in out)
-        return out  # type: ignore[return-value]
+        return per_leaf(self.disc, matrices)
 
 
 # ---------------------------------------------------------------------------
@@ -446,13 +441,21 @@ def non_linear_solve_run(
     time_carry_index_array: np.ndarray | None = None,
     time_carry_term: np.ndarray | None = None,
     newton: bool = False,
+    fine_scales: np.ndarray | None = None,
+    sg_operator=None,
 ):
     """Picard / defect-correction iteration (reference solve_system.py:354).
 
     residual = forcing (plus the time-march carry on its rows) - (LHS(u) -
-    RHS(u)) - G^T lambda; update = frozen solve of the residual.  With
-    ``newton`` every iteration after the first solves with the exact element
-    Jacobians at the iterate instead (see _preconditioned_newton_solve).
+    RHS(u)) - G^T lambda, less the VMS unresolved-scale forcing when
+    ``sg_operator`` (a :class:`mfv2d_torch.solver.vms.SuyashGreenOperator`)
+    is given; update = frozen solve of the residual.  With ``newton`` every
+    iteration after the first solves with the exact element Jacobians at the
+    iterate instead (see _preconditioned_newton_solve).
+
+    Returns ``(solution, lagrange, iterations, residual, unresolved)``: the
+    last residual, or every iteration's with ``return_all_residuals``, and
+    the unresolved scales (``fine_scales`` where there is no operator).
     """
     from mfv2d_torch.tracing import tracer
 
@@ -470,6 +473,21 @@ def non_linear_solve_run(
         base_vec[time_carry_index_array] += time_carry_term
     residuals = np.zeros(max_iterations)
     max_residual = 0.0
+    unresolved_scales = fine_scales
+    # Inexact forcing (VMSSettings.inexact_forcing): while the outer
+    # residual is large, solve the unresolved-scale equation only to an
+    # absolute tolerance of inexact_eta times the previous outer residual;
+    # a convergence exit reached with a loosened tolerance re-solves the
+    # scales at the configured tolerance and re-measures.  Within
+    # anticipate_factor of the exit threshold the in-loop solve already runs
+    # at the configured tolerance, so the exit needs no re-solve.  The JAX
+    # package also serves loosened Green's applies ("accuracy tiers") on
+    # the TPU only; here every apply is exact f64, so the loosened state
+    # comes from the tolerance alone.
+    vms_inexact = sg_operator is not None and sg_operator.inexact_forcing
+    # The loop exits when max_residual <= atol or <= max_mag * rtol.
+    exit_threshold = max(atol, max_mag * rtol)
+    vms_loosened = False
 
     while iter_cnt < max_iterations:
         with tracer.stage("picard-residual"):
@@ -479,6 +497,27 @@ def non_linear_solve_run(
             main_value = np.concatenate((main_value, lagrange_mat @ solution))
 
         residual = base_vec - main_value
+        if sg_operator is not None:
+            with tracer.stage("picard-vms-advection"):
+                sg_operator.update_nonlinear_advection(solution)
+            final_atol = sg_operator.convergence.absolute_tolerance
+            eta_abs: float | None = None
+            if vms_inexact:
+                # The outer residual this iteration will see: the previous
+                # one, or the forcing's magnitude before the first.
+                r_scale = (
+                    residuals[iter_cnt - 1] if iter_cnt > 0 else float(np.abs(base_vec).max())
+                )
+                factor = sg_operator.anticipate_factor
+                if not (factor > 0 and r_scale <= factor * exit_threshold):
+                    eta_abs = max(final_atol, sg_operator.inexact_eta * r_scale)
+            with tracer.stage("picard-vms-unresolved"):
+                unresolved_scales = sg_operator.compute_unresolved_contributions(
+                    solution, unresolved_scales, atol_override=eta_abs
+                )
+            vms_loosened = eta_abs is not None and eta_abs > final_atol
+            residual -= sg_operator.fine_results_to_coarse_dofs(unresolved_scales, dual=True)
+
         max_residual = float(np.abs(residual).max())
         residuals[iter_cnt] = max_residual
         if print_residual:
@@ -494,7 +533,25 @@ def non_linear_solve_run(
             print(progress_tracker.state_str("{} - {} | {}"), end=_end, flush=True)
 
         if not (max_residual > atol and max_residual > max_mag * rtol):
-            break
+            if not (vms_inexact and vms_loosened):
+                break
+            # The exit was measured through a loosened unresolved-scale
+            # solve: re-solve at the configured tolerance (warm-started)
+            # and re-measure before accepting convergence.
+            with tracer.stage("picard-vms-unresolved"):
+                unresolved_scales = sg_operator.compute_unresolved_contributions(
+                    solution, unresolved_scales
+                )
+            vms_loosened = False
+            residual = (
+                base_vec
+                - main_value
+                - sg_operator.fine_results_to_coarse_dofs(unresolved_scales, dual=True)
+            )
+            max_residual = float(np.abs(residual).max())
+            residuals[iter_cnt] = max_residual
+            if not (max_residual > atol and max_residual > max_mag * rtol):
+                break
 
         if newton and iter_cnt > 0:
             # Exact-Newton step without refactorizing: solve J_k d = r by
@@ -524,8 +581,9 @@ def non_linear_solve_run(
                 else np.array(solution)
             )
             f_k = relax * np.asarray(d_solution)
-            # Residual growth means the local linearization shifted; stale
-            # pairs then extrapolate the wrong map — restart the window.
+            # Residual growth means the local linearization shifted (or the
+            # VMS forcing moved); stale pairs then extrapolate the wrong
+            # map — restart the window.
             if iter_cnt >= 1 and residuals[iter_cnt] > residuals[iter_cnt - 1]:
                 aa_x.clear()
                 aa_f.clear()
@@ -560,8 +618,8 @@ def non_linear_solve_run(
         iter_cnt += 1
 
     if not return_all_residuals:
-        return solution, global_lagrange, iter_cnt, np.array(max_residual)
-    return solution, global_lagrange, iter_cnt, residuals
+        return solution, global_lagrange, iter_cnt, np.array(max_residual), unresolved_scales
+    return solution, global_lagrange, iter_cnt, residuals, unresolved_scales
 
 
 # ---------------------------------------------------------------------------
@@ -658,11 +716,14 @@ def reconstruct_mesh_from_solution(
     disc: Discretization,
     recon_order: int | None,
     solution: np.ndarray,
+    vms_solution: np.ndarray | None = None,
 ) -> ReconstructedGrid:
     """Sample every form on a per-element nodal grid (VTK Lagrange cells).
 
     Reconstruction is vectorized per order bucket (reconstruct_batched) on
-    the host.
+    the host.  ``vms_solution``, the VMS fine scales as coarse dual DoFs,
+    adds the ``vms-<form>`` point data: the masses turn it into primal DoFs
+    on the device.
     """
     from mfv2d_torch.projection import reconstruct_batched
 
@@ -670,6 +731,7 @@ def reconstruct_mesh_from_solution(
     n_leaves = disc.n_leaves
     per_leaf_points: list[np.ndarray | None] = [None] * n_leaves
     per_leaf_forms: list[dict | None] = [None] * n_leaves
+    per_leaf_vms: list[dict | None] = [None] * n_leaves
     order_list = [tuple(int(v) for v in disc.element_orders[i]) for i in range(n_leaves)]
 
     for bucket in disc.buckets:
@@ -698,11 +760,21 @@ def reconstruct_mesh_from_solution(
         basis = bucket.batch.basis
         offsets = form_spec.form_offsets(p1, p2)
         form_vals = {}
+        vms_vals = {}
         for idx, (name, order) in enumerate(form_spec):
             fd = dofs[:, offsets[idx] : offsets[idx + 1]]
             vals = reconstruct_batched(corners, basis, order, fd, xi, eta)
             shape = (e, -1, 2) if order == UnknownFormOrder.FORM_ORDER_1 else (e, -1)
             form_vals[name] = np.reshape(vals, shape)
+            if vms_solution is not None:
+                vdofs = _to_device(
+                    np.asarray(vms_solution)[bucket.gather][:, offsets[idx] : offsets[idx + 1]],
+                    bucket,
+                )
+                m = bucket.batch.mass(order, False)
+                vdofs = torch.linalg.solve(m, vdofs[..., None])[..., 0].cpu().numpy()
+                vvals = reconstruct_batched(corners, basis, order, vdofs, xi, eta)
+                vms_vals[name] = np.reshape(vvals, shape)
 
         for j, rank in enumerate(bucket.leaf_ranks):
             rank = int(rank)
@@ -710,11 +782,16 @@ def reconstruct_mesh_from_solution(
                 [ex[j].ravel(), ey[j].ravel()], axis=1
             )
             per_leaf_forms[rank] = {k: v[j] for k, v in form_vals.items()}
+            if vms_solution is not None:
+                per_leaf_vms[rank] = {k: v[j] for k, v in vms_vals.items()}
 
     cell_arrays: list[np.ndarray] = []
     node_cnt = 0
     xy_parts: list[np.ndarray] = []
     build: dict[str, list[np.ndarray]] = {n: [] for n in form_spec.names}
+    vms_build: dict[str, list[np.ndarray]] = (
+        {n: [] for n in form_spec.names} if vms_solution is not None else {}
+    )
     for rank in range(n_leaves):
         p1, p2 = order_list[rank]
         ro = max(p1, p2) if recon_order is None else recon_order
@@ -724,6 +801,8 @@ def reconstruct_mesh_from_solution(
         xy_parts.append(per_leaf_points[rank])
         for name in form_spec.names:
             build[name].append(per_leaf_forms[rank][name])
+        for name in vms_build:
+            vms_build[name].append(per_leaf_vms[rank][name])
 
     xy = np.concatenate(xy_parts, axis=0)
     points = np.concatenate([xy, np.zeros((node_cnt, 1))], axis=1)
@@ -734,5 +813,7 @@ def reconstruct_mesh_from_solution(
     )
     for name in build:
         grid.point_data[name] = np.concatenate(build[name], axis=0)
+    for name in vms_build:
+        grid.point_data["vms-" + name] = np.concatenate(vms_build[name], axis=0)
     grid.cell_data["orders"] = np.array(order_list)
     return grid

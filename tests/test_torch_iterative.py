@@ -352,7 +352,7 @@ def test_golden_fixture_through_schur_direct():
         disc, matrices, g, TConv(), method="schur_direct"
     )
     explicit_vec = np.concatenate((forcing, lagrange_vec))
-    solution, _, _, _ = non_linear_solve_run(
+    solution, _, _, _, _ = non_linear_solve_run(
         20, 1.0, 1e-12, 0.0, False, evaluator, explicit_vec,
         np.zeros(disc.n_dofs), np.zeros(g.shape[0]),
         float(np.abs(explicit_vec).max()), solver, g,

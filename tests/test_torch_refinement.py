@@ -1,8 +1,9 @@
 """hp refinement of the port against the JAX package.
 
-Every estimator but VMS runs on a 3x3 mesh at p=2-3 with one split and one
-raised leaf, in both packages on the same solution vector: ``element_error``,
-``href_cost`` and ``dir_cost`` must agree to 1e-10 relative.
+Every estimator runs on a 3x3 mesh at p=2-3 with one split and one raised
+leaf, in both packages on the same solution vector: ``element_error``,
+``href_cost`` and ``dir_cost`` must agree to 1e-10 relative (the VMS
+estimator, whose fine-scale iteration stops at a tolerance, to 1e-8).
 ``refine_mesh_based_on_error`` runs on identical error arrays, so the
 refined meshes (leaf indices, orders, corners) must be exactly equal.  Two rounds of ``solve_system_2d``
 with refinement on the hp advection-diffusion gallery system must agree to
@@ -147,7 +148,7 @@ def _port_solution(system, bcs, constrained, disc, evaluator) -> np.ndarray:
         disc, system, evaluator, constrained, bcs, None
     )
     explicit = np.concatenate((forcing, lag_vec))
-    solution, _, _, _ = non_linear_solve_run(
+    solution, _, _, _, _ = non_linear_solve_run(
         20, 1.0, 1e-10, 0.0, False, evaluator, explicit, np.zeros(disc.n_dofs),
         np.zeros(lag_vec.size), float(np.abs(explicit).max()),
         FrozenSaddleSolver(evaluator.matrices_per_leaf(matrices), lag_mat), lag_mat,
@@ -420,18 +421,90 @@ def test_mesh_from_arrays_carries_a_refined_mesh():
         mesh_from_arrays(root, children, corners, orders)
 
 
+def _u_skew(x, y):
+    return np.cos(np.pi / 2 * x) * np.cos(np.pi / 2 * y) * np.exp(0.4 * x + 0.2 * y)
+
+
+def _source_skew(x, y):
+    return np.exp(0.5 * x + 0.25 * y)
+
+
+def _skew_flow(mf, transport):
+    """The nonlinear flow of bench_vms.py with an asymmetric boundary value
+    and source, so that no two VMS estimates tie at a refinement cut."""
+    model = transport.nonlinear_flow(-1.0, _u_skew, _source_skew)
+    return model.system, [], [], model.u
+
+
+def _vms_estimator(mf, system, max_iters=20):
+    """``ErrorEstimateVMS`` of u with the flow's diffusion as the symmetric
+    system and the flow itself as the non-symmetric one."""
+    forms = {f.label: f for f in system.unknown_forms.iter_forms()}
+    u, q = forms["u"], forms["q"]
+    symmetric = mf.KFormSystem(
+        q.weight.derivative @ u - q.weight @ q == q.weight ^ _u_skew,
+        -1.0 * (u.weight @ q.derivative) == -(u.weight @ _source_skew),
+    )
+    return mf.ErrorEstimateVMS(u, symmetric, system, 1, max_iters, 1e-12, 1e-10)
+
+
 def test_vms_estimator_raises_naming_roadmap_item():
-    model = tflow.navier_stokes(10.0)
-    vms = tf.ErrorEstimateVMS(model.velocity, model.system, model.system, 1, 5, 1e-8, 1e-8)
-    settings = tf.RefinementSettings(vms, tf.RefinementLimitElementCount(0.1, 2))
-    mesh = tf.examples.unit_square_mesh(2, 2, 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 9"):
-        tf.solve_system_2d(
-            mesh, tf.SystemSettings(model.system), refinement_settings=settings, device="cpu"
+    """The VMS estimator (ROADMAP module item 9; the name is from when it
+    raised naming that item) against the JAX package: on the hp mesh of
+    buckets (2, 2), (3, 3) and (4, 3) from the same solution vector, and
+    through one round of ``solve_system_2d`` on 4x4 at p=2; estimates and
+    costs to 1e-8, refined meshes equal.  A target form outside the system
+    raises in both packages."""
+    t_system, _, _, t_target, t_disc, t_eval = _setup(tf, ttransport, _skew_flow, _mesh(tf))
+    j_system, _, _, j_target, j_disc, j_eval = _setup(jf, jtransport, _skew_flow, _mesh(jf))
+    solution = _port_solution(t_system, [], [], t_disc, t_eval)
+    results = []
+    for pkg, refinement, system, disc, evaluator in (
+        (tf, trefinement, t_system, t_disc, t_eval),
+        (jf, jrefinement, j_system, j_disc, j_eval),
+    ):
+        orders_before = disc.element_orders.tolist()
+        mesh, err, cost = refinement.perform_mesh_refinement(
+            disc, solution, system, evaluator, _vms_estimator(pkg, system), 0.5,
+            pkg.RefinementLimitElementCount(0.5, 6), False, [], 5, None, [],
         )
-    _, _, _, _, disc, evaluator = _setup(tf, tflow, _navier_stokes, mesh)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 9"):
+        assert [list(disc.mesh.get_leaf_orders(i)) for i in disc.leaf_indices] == orders_before
+        results.append((mesh_arrays(mesh), err, cost))
+    (t_mesh, t_err, t_cost), (j_mesh, j_err, j_cost) = results
+    assert np.all(t_err > 0)
+    assert rel(t_err, j_err) <= 1e-8
+    assert rel(t_cost, j_cost) <= 1e-8
+    for mine, ref in zip(t_mesh, j_mesh):
+        assert np.array_equal(mine, ref)
+
+    rounds = []
+    for pkg, mod, on_cpu in ((tf, ttransport, {"device": "cpu"}), (jf, jtransport, {})):
+        system = _skew_flow(pkg, mod)[0]
+        settings = pkg.RefinementSettings(
+            _vms_estimator(pkg, system), pkg.RefinementLimitElementCount(0.1, 128)
+        )
+        rounds.append(
+            pkg.solve_system_2d(
+                pkg.examples.unit_square_mesh(4, 4, 2),
+                pkg.SystemSettings(system, over_integration_order=3),
+                pkg.SolverSettings(pkg.ConvergenceSettings(40, 1e-9, 0)),
+                refinement_settings=settings,
+                recon_order=4,
+                **on_cpu,
+            )
+        )
+    (t_grids, t_stats, t_out), (j_grids, j_stats, j_out) = rounds
+    assert np.array_equal(t_stats.iter_history, j_stats.iter_history)
+    for name in ("error_estimate", "h_ref_cost_estimate"):
+        assert rel(t_grids[-1].cell_data[name], j_grids[-1].cell_data[name]) <= 1e-8
+    for mine, ref in zip(mesh_arrays(t_out), mesh_arrays(j_out)):
+        assert np.array_equal(mine, ref)
+    assert (mesh_arrays(t_out)[2] > 2).any()
+
+    stray = tf.KFormUnknown("w", tf.UnknownFormOrder.FORM_ORDER_2)
+    bad = tf.ErrorEstimateVMS(stray, t_system, t_system, 1, 5, 1e-8, 1e-8)
+    with pytest.raises(ValueError, match="not in the system"):
         trefinement.perform_mesh_refinement(
-            disc, np.zeros(disc.n_dofs), model.system, evaluator, vms, 0.0,
-            settings.refinement_limit, False, [], None, None, [],
+            t_disc, solution, t_system, t_eval, bad, 0.0,
+            tf.RefinementLimitElementCount(0.1, 2), False, [], None, None, [],
         )

@@ -73,7 +73,7 @@ def test_full_solution_matches_golden_fixture():
     )
     solver = FrozenSaddleSolver(evaluator.matrices_per_leaf(matrices), lagrange_mat)
     explicit_vec = np.concatenate((forcing, lagrange_vec))
-    solution, _, _, _ = non_linear_solve_run(
+    solution, _, _, _, _ = non_linear_solve_run(
         20, 1.0, 1e-12, 0.0, False, evaluator, explicit_vec,
         np.zeros(disc.n_dofs), np.zeros(lagrange_mat.shape[0]),
         float(np.abs(explicit_vec).max()), solver, lagrange_mat,
@@ -189,20 +189,49 @@ def test_solve_system_2d_matches_jax(case, monkeypatch):
     assert np.array_equal(tgrids[-1].cells, jgrids[-1].cells)
 
 
+def _stokes(p, linear_solver):
+    """examples/steady/stokes_flow.py: the VVP Stokes system (BASELINE
+    config 3) on 4x4 at order p."""
+
+    def make(mf, flow):
+        model = flow.stokes_flow()
+        return (
+            mf.examples.unit_square_mesh(4, 4, p),
+            mf.SystemSettings(model.system),
+            mf.SolverSettings(
+                mf.ConvergenceSettings(absolute_tolerance=1e-10, relative_tolerance=0),
+                linear_solver=linear_solver,
+            ),
+        )
+
+    return make
+
+
+@pytest.mark.parametrize("linear_solver", ["direct", "schur_direct", "dense"])
+@pytest.mark.parametrize("p", [2, 4])
+def test_stokes_flow_matches_jax(p, linear_solver, monkeypatch):
+    """The DoF vectors agree to 1e-10 relative; the point data at the
+    solution's scale, its largest field value: the exact pressure is zero
+    (the computed one is discretization error, 1e-7 at p=4) and the
+    divergence is round-off."""
+    make = _stokes(p, linear_solver)
+    jsol, jgrids, jstats = _solve_capturing(jf, jsolve_mod, monkeypatch, make, jflow)
+    monkeypatch.undo()
+    tsol, tgrids, tstats = _solve_capturing(tf, tsolve_mod, monkeypatch, make, tflow)
+    assert rel(tsol, jsol) <= 1e-10
+    assert np.array_equal(tstats.iter_history, jstats.iter_history)
+    assert tstats.n_total_dofs == jstats.n_total_dofs
+    scale = max(float(np.abs(ref).max()) for ref in jgrids[-1].point_data.values())
+    for name, ref in jgrids[-1].point_data.items():
+        assert np.abs(tgrids[-1].point_data[name] - ref).max() <= 1e-10 * scale, name
+    vel = tgrids[-1].point_data["vel"]
+    exact = tflow.stokes_velocity_exact(tgrids[-1].points[:, 0], tgrids[-1].points[:, 1])
+    assert np.sqrt(np.mean(np.sum((vel - exact) ** 2, axis=-1))) < (1e-2 if p == 2 else 1e-4)
+
+
 def test_unported_options_raise():
     mesh, settings, solver = _mixed_poisson(tf, tpoisson)
-    model = tflow.navier_stokes(10.0)
-    vms = tf.VMSSettings(model.system, model.system, 1, tf.ConvergenceSettings())
-    vms_estimate = tf.ErrorEstimateVMS(
-        tpoisson.mixed_poisson().u, model.system, model.system, 1, 5, 1e-8, 1e-8
-    )
     bad_calls = [
-        dict(
-            refinement_settings=tf.RefinementSettings(
-                vms_estimate, tf.RefinementLimitElementCount(0.1, 2)
-            )
-        ),
-        dict(vms_settings=vms),
         dict(checkpoint_settings=object()),
         dict(solver_settings=tf.SolverSettings(device_mesh=object())),
     ]
@@ -213,6 +242,13 @@ def test_unported_options_raise():
         tf.solve_system_2d(
             mesh, settings, tf.SolverSettings(linear_solver="no-such-solver"), device="cpu"
         )
+
+    # VMS settings whose systems do not match the solved one are refused, as
+    # in the JAX package.
+    model = tflow.navier_stokes(10.0)
+    vms = tf.VMSSettings(model.system, model.system, 1, tf.ConvergenceSettings())
+    with pytest.raises(ValueError, match="VMS symmetric system"):
+        tf.solve_system_2d(mesh, settings, vms_settings=vms, device="cpu")
 
     # Newton and time marches are ported: they solve.
     u = tpoisson.mixed_poisson().u
