@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (mfv2d_torch) on one CUDA GPU.
 
-Run from the repository root:  python3 chip_smoke.py [--probe [inverse|mass|hp|vms]]
+Run from the repository root:  python3 chip_smoke.py [--probe [inverse|mass|hp|vms|parallel]]
 
   --probe         phases 0, 1 and 6 only: build the kernels and hold the
                   batched inverse's routes against torch.linalg.inv, with
@@ -13,6 +13,9 @@ Run from the repository root:  python3 chip_smoke.py [--probe [inverse|mass|hp|v
   --probe vms     phases 0, 1 and 15 only: VMS on the card, BASELINE
                   config 5 among it, with both kernels held and timed at
                   every shape the phase launched them on
+  --probe parallel  phases 0, 1 and 16 only: the element-sharded steady
+                  solve over torch.distributed, with the earlier phases
+                  it compares with run again for their grids
 
 Phases (each ends in torch.cuda.synchronize(); any failure exits non-zero):
 
@@ -90,6 +93,25 @@ Phases (each ends in torch.cuda.synchronize(); any failure exits non-zero):
    plain versions and timed at every shape the phase launched them on
    (M1 at p=8 and p=10, the inverse at n=208 and n=320, E=4096, among
    them), beside the library call and the bound
+16. the element-sharded steady solve over torch.distributed, its ranks
+   spawned processes (start method spawn) in a process group with a
+   timeout; a rank that fails, dies or hangs fails the run.  (a) 64x64
+   p=8 mixed Poisson (phase 8's setup) at world size 1 on NCCL against
+   phase 8's "schur_direct" solution (1e-8) with the trace CG's
+   iterations, wall, tracer stages and peak memory; (b) the same at 2
+   ranks (NCCL over two cards, else gloo with both ranks on cuda:0)
+   against 16a, each rank launching both kernels at E=2048; (c) phase
+   5's Navier-Stokes at 2 ranks through trace GMRES, cut after 6
+   iterations and resumed from its checkpoint, its Picard updates adding
+   up to phase 5's and its velocity within 1e-8 of phase 5's; (d) phase
+   14's final hp mesh at 2 ranks (trace GMRES) against phase 14's
+   "schur_direct" solution; (e) checkpoints: the linear heat march cut
+   at 32 steps and resumed to 64 against an uninterrupted host march
+   (1e-13) and phase 12's fused march (1e-10), phase 5's solve cut after
+   6 iterations and resumed (17 in all, 1e-12), and 16c's files, the
+   last of which resumes a world-size-1 run.  Every rank
+   returns the same answer and counts one all_reduce per trace matvec;
+   both kernels are then held and timed at 16b's per-rank shapes
 
 The line before the last is the kernel report (JSON), the last line the
 device summary (JSON).
@@ -500,7 +522,7 @@ def _navier_stokes(
 ):
     """Phase 5's Navier-Stokes solve (or its setup on another mesh and
     order, or by Newton, which takes full steps); returns iterations,
-    velocity error, wall and the solve's statistics."""
+    velocity error, wall, the solve's statistics and its last grid."""
     import mfv2d_torch as mf
     from mfv2d_torch.models import flow
 
@@ -531,14 +553,15 @@ def _navier_stokes(
         raise RuntimeError(f"Navier-Stokes {method} ({linear_solver}) did not converge")
     if not err <= max_err:
         raise RuntimeError(f"Navier-Stokes velocity error {err:.3e} > {max_err:.0e}")
-    return iters, err, wall, stats
+    return iters, err, wall, stats, grids[-1]
 
 
 def phase5_picard() -> int:
     from mfv2d_torch.ops.kernels import mass_edge
 
     mass_edge.launches = 0
-    iters, err, wall, _ = _navier_stokes("direct")
+    iters, err, wall, _, grid = _navier_stokes("direct")
+    REFERENCES["phase 5"] = (iters, err, grid)
     print(
         f"phase 5: Navier-Stokes Re=10 16x16 p=5: {iters} Picard iterations,"
         f" velocity error {err:.3e}, wall {wall:.3f} s,"
@@ -781,7 +804,7 @@ def _time_inverse(a: torch.Tensor, name: str, phase: int) -> dict:
             **timing}
 
 
-def _mixed_poisson_at_size(n: int, p: int, linear_solver: str, phase: int) -> None:
+def _mixed_poisson_at_size(n: int, p: int, linear_solver: str, phase: int):
     import mfv2d_torch as mf
     from mfv2d_torch.models import poisson
     from mfv2d_torch.tracing import tracer
@@ -814,6 +837,7 @@ def _mixed_poisson_at_size(n: int, p: int, linear_solver: str, phase: int) -> No
     print(f"  max_memory_allocated {torch.cuda.max_memory_allocated()} bytes")
     if not err <= 1e-8:
         raise RuntimeError(f"mixed Poisson error {err:.3e} > 1e-8")
+    return grids[-1]
 
 
 def _require_launches(phase: int, **counts: int) -> None:
@@ -883,7 +907,7 @@ def phase8_static_condensation() -> int:
         raise RuntimeError(f"the p=8 blocks take the {route} route, not the blocked one")
     gj_inverse.launches = 0
     mass_edge.launches = 0
-    _mixed_poisson_at_size(64, 8, "schur_direct", phase=8)
+    REFERENCES["phase 8"] = _mixed_poisson_at_size(64, 8, "schur_direct", phase=8)
     launches = mass_edge.launches
     _require_launches(8, gj_inverse=gj_inverse.launches, mass_edge=launches)
     _device_profile(
@@ -897,7 +921,7 @@ def phase9_picard_condensed(direct_iterations: int) -> None:
 
     gj_inverse.launches = 0
     mass_edge.launches = 0
-    iters, err, wall, _ = _navier_stokes("schur_direct")
+    iters, err, wall, _, _ = _navier_stokes("schur_direct")
     print(
         f"phase 9: Navier-Stokes Re=10 16x16 p=5 schur_direct: {iters} Picard"
         f" iterations (direct: {direct_iterations}), velocity error {err:.3e},"
@@ -932,7 +956,7 @@ def phase10_streamed_table() -> tuple[int, int]:
         raise RuntimeError(f"the n=441 blocks take the {route} route, not the streamed one")
     gj_inverse.launches = 0
     mass_edge.launches = 0
-    iters, err, wall, _ = _navier_stokes("schur_direct", n=4, p=10)
+    iters, err, wall, _, _ = _navier_stokes("schur_direct", n=4, p=10)
     print(
         f"phase 10: Navier-Stokes Re=10 4x4 p=10 schur_direct: {iters} Picard"
         f" iterations, velocity error {err:.3e}, wall {wall:.3f} s; n=441 blocks"
@@ -968,7 +992,7 @@ def phase13_p16() -> tuple[int, int]:
     mass_edge.launches = 0
     tracer.enable()
     tracer.reset()
-    iters, err, wall, stats = _navier_stokes("schur_direct", n=4, p=16)
+    iters, err, wall, stats, _ = _navier_stokes("schur_direct", n=4, p=16)
     tracer.disable()
     print(
         f"phase 13: Navier-Stokes Re=10 4x4 p=16 schur_direct: {stats.n_total_dofs}"
@@ -1050,7 +1074,7 @@ def phase11_newton(picard_iterations: int) -> dict:
     for linear_solver, n, max_err in cases:
         gj_inverse.launches = 0
         mass_edge.launches = 0
-        iters, err, wall, stats = _navier_stokes(
+        iters, err, wall, stats, _ = _navier_stokes(
             linear_solver, n=n, method="newton", max_err=max_err
         )
         key = linear_solver if n == 16 else f"{linear_solver} {n}x{n}"
@@ -1137,7 +1161,11 @@ def _heat_steady_gradient(x, y):
     )
 
 
-def _linear_heat_march():
+def _linear_heat_march(nt: int = LINEAR_HEAT_NT, checkpoint_settings=None):
+    """The fused dense linear heat march (to ``nt`` steps); with
+    ``checkpoint_settings`` the same march takes the host loop.  Returns
+    the statistics, the error at the end, the wall, M1's launches and the
+    last grid."""
     import mfv2d_torch as mf
     from mfv2d_torch.ops.kernels import mass_edge
 
@@ -1157,20 +1185,21 @@ def _linear_heat_march():
         ),
         mf.SolverSettings(mf.ConvergenceSettings(20, 1e-10, 0), linear_solver="dense"),
         time_settings=mf.TimeSettings(
-            dt=LINEAR_HEAT_DT, nt=LINEAR_HEAT_NT, time_march_relations={u.weight: u},
+            dt=LINEAR_HEAT_DT, nt=nt, time_march_relations={u.weight: u},
             sample_rate=LINEAR_HEAT_NT,
         ),
         recon_order=4,
         device="cuda",
+        checkpoint_settings=checkpoint_settings,
     )
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     t_end = float(grids[-1].field_data["time"][0])
-    if not np.isclose(t_end, LINEAR_HEAT_DT * LINEAR_HEAT_NT):
+    if not np.isclose(t_end, LINEAR_HEAT_DT * nt):
         raise RuntimeError(f"linear heat march ends at t={t_end}")
     decay = np.exp(-np.pi**2 * t_end / 2)
     err = _l2_point_error(grids[-1], "u", lambda x, y: _heat_steady(x, y) * decay)
-    return stats, err, wall, mass_edge.launches
+    return stats, err, wall, mass_edge.launches, grids[-1]
 
 
 def phase12_marches() -> dict:
@@ -1197,7 +1226,7 @@ def phase12_marches() -> dict:
         lambda: _heat_march(64, 4, "direct", nt=4),
     )
 
-    stats16, err16, wall16, count = _linear_heat_march()
+    stats16, err16, wall16, count, REFERENCES["phase 12"] = _linear_heat_march()
     print(
         f"phase 12: fused dense linear heat march 16x16 p=4: {stats16.n_total_dofs}"
         f" unknowns (dense saddle {stats16.n_total_dofs**2 * 8} bytes),"
@@ -1457,6 +1486,7 @@ def phase14_hp() -> dict:
               / np.abs(finals["direct"].point_data[k]).max())
         for k in ("u", "q")
     )
+    REFERENCES["phase 14"] = (mesh, finals["schur_direct"])
     print(f"  final mesh: direct and schur_direct differ by {gap:.3e} (relative)")
     if not gap <= 1e-10:
         raise RuntimeError(f"the final hp solves disagree: {gap:.3e}")
@@ -1638,12 +1668,14 @@ class _KernelRecorder:
 
     def __enter__(self):
         from mfv2d_torch.ops.kernels import gj_inverse, mass_edge
+        from mfv2d_torch.parallel import sharding
         from mfv2d_torch.solver import iterative
 
         self._saved = [
             (mass_edge, "mass_edge", mass_edge.mass_edge),
             (gj_inverse, "gj_inverse", gj_inverse.gj_inverse),
             (iterative, "gj_inverse", iterative.gj_inverse),
+            (sharding, "gj_inverse", sharding.gj_inverse),
         ]
         mass_edge.mass_edge = self._recording(
             mass_edge, mass_edge.mass_edge, self.mass_edge,
@@ -1654,6 +1686,7 @@ class _KernelRecorder:
         )
         gj_inverse.gj_inverse = inv
         iterative.gj_inverse = inv
+        sharding.gj_inverse = inv
         return self
 
     def __exit__(self, *exc) -> None:
@@ -1806,6 +1839,504 @@ def phase15_vms() -> dict:
     return {"runs": runs, "mass_edge": mass_timing, "gj_inverse": inverse_timing}
 
 
+# Phase 16: the element-sharded steady solve over torch.distributed.  The
+# ranks are spawned processes; they build their models by name and size.
+P16_MESH, P16_ORDER = 64, 8  # 16a and 16b: phase 8's setup, BASELINE config 5's mesh and order
+P16_CUT = 6  # 16e: Picard iterations before the cut
+P16_TIMEOUT_S = 600  # a rank silent this long has hung; the process group times out too
+P16_TOL = 1e-8
+# The JAX package's Picard iterations for phase 5's setup (CPU).
+JAX_NS_PICARD_ITERATIONS = 17
+# Grids and meshes of earlier phases that phase 16 compares with; a phase
+# that did not run (--probe parallel) is run again for them.
+REFERENCES: dict = {}
+# Every torch.distributed.all_reduce a phase-16 rank makes, however it is
+# called (the rank counts them at the function itself).
+P16_RAW_REDUCES = [0]
+
+
+def _p16_problem(name: str, hp_mesh=None):
+    """(mesh, system settings, solver settings without device_mesh, recon
+    order, field, exact) of a phase-16 problem, built by name."""
+    import mfv2d_torch as mf
+    from mfv2d_torch.models import flow, poisson, transport
+
+    if name == "poisson":
+        model = poisson.mixed_poisson()
+        return (
+            mf.examples.unit_square_mesh(P16_MESH, P16_MESH, P16_ORDER),
+            mf.SystemSettings(model.system),
+            mf.SolverSettings(mf.ConvergenceSettings(20, 1e-10, 0)),
+            P16_ORDER, "u", poisson.u_exact,
+        )
+    if name == "ns":
+        model = flow.navier_stokes(10.0)
+        mesh = mf.examples.unit_square_mesh(16, 16, 5)
+        bc = mf.BoundaryCondition2DSteady(
+            model.velocity, mesh.boundary_indices, flow.ns_velocity_exact
+        )
+        return (
+            mesh,
+            mf.SystemSettings(model.system, [bc], [(0.0, model.pressure)]),
+            mf.SolverSettings(
+                mf.ConvergenceSettings(80, 1e-8, 0.0), relaxation=0.7, linear_solver="gmres"
+            ),
+            10, "vel", flow.ns_velocity_exact,
+        )
+    # Advection makes the trace Schur complement nonsymmetric: GMRES.
+    model = transport.linear_advection_diffusion(HP_NU, _hp_wind, _hp_u, _hp_source)
+    return (
+        hp_mesh,
+        mf.SystemSettings(model.system),
+        mf.SolverSettings(mf.ConvergenceSettings(100, 1e-10, 0), linear_solver="gmres"),
+        4, "u", _hp_u,
+    )
+
+
+def _p16_job(mesh, problem: str, hp_mesh=None, max_iters=None, path=None, resume=None):
+    """One sharded solve on this rank, with what it launched and reduced."""
+    from dataclasses import replace
+
+    import mfv2d_torch as mf
+    from mfv2d_torch.ops.kernels import gj_inverse, mass_edge
+    from mfv2d_torch.parallel.sharding import TraceComm
+    from mfv2d_torch.tracing import tracer
+
+    comm = TraceComm(mesh)
+    fe_mesh, settings, solver, recon, field, exact = _p16_problem(problem, hp_mesh)
+    conv = solver.convergence
+    if max_iters is not None:
+        conv = replace(conv, maximum_iterations=max_iters)
+    solver = replace(solver, convergence=conv, device_mesh=comm)
+    ckpt = None if path is None else mf.CheckpointSettings(path, every=1, resume_from=resume)
+    raw_before = P16_RAW_REDUCES[0]
+    with _KernelRecorder() as rec:
+        rec.part = problem
+        mass_edge.launches = 0
+        gj_inverse.launches = 0
+        tracer.enable()
+        tracer.reset()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        grids, stats, _ = mf.solve_system_2d(
+            fe_mesh, settings, solver, recon_order=recon, checkpoint_settings=ckpt
+        )
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        tracer.disable()
+        launches = {"mass_edge": mass_edge.launches, "gj_inverse": gj_inverse.launches}
+    grid = grids[-1]
+    return {
+        "device": str(comm.device),
+        "backend": comm.backend,
+        "checkpointing": ckpt is not None,
+        "buckets": len(stats.element_orders),
+        "raw_reduces": P16_RAW_REDUCES[0] - raw_before,
+        "points": grid.point_data[field],
+        "fields": {k: v for k, v in grid.point_data.items()},
+        "error": _l2_point_error(grid, field, exact),
+        "iterations": int(stats.iter_history[0]),
+        "unknowns": int(stats.n_total_dofs),
+        "multipliers": int(stats.n_lagrange),
+        "counts": dict(comm.counts),
+        "matvecs": comm.matvecs,
+        "krylov": list(comm.krylov),
+        "wall_s": wall,
+        "stages": {k: v[1] for k, v in tracer.stages.items()},
+        "peak_bytes": torch.cuda.max_memory_allocated(),
+        "launches": launches,
+        "m1_shapes": {k: sum(v["launches"].values()) for k, v in rec.mass_edge.items()},
+        "inverse_shapes": {k: sum(v["launches"].values()) for k, v in rec.gj_inverse.items()},
+    }
+
+
+def _p16_rank(rank, world, port, backend, jobs, queue):
+    """One rank of a phase-16 group: join it, run ``jobs`` in order, send
+    the results (or the traceback) to the parent."""
+    import traceback
+    from datetime import timedelta
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    torch.set_num_threads(1)
+    try:
+        torch.cuda.set_device(rank % torch.cuda.device_count())
+        dist.init_process_group(
+            backend, init_method=f"tcp://localhost:{port}", world_size=world, rank=rank,
+            timeout=timedelta(seconds=P16_TIMEOUT_S),
+        )
+        mesh = init_device_mesh("cuda", (world,))
+        all_reduce = dist.all_reduce
+
+        def counted_all_reduce(*args, **kwargs):
+            P16_RAW_REDUCES[0] += 1
+            return all_reduce(*args, **kwargs)
+
+        dist.all_reduce = counted_all_reduce
+        # Each job ends in a collective (the DoF gather), so every rank is
+        # past its last one when it leaves the group.
+        results = {name: _p16_job(mesh, **kwargs) for name, kwargs in jobs}
+        dist.destroy_process_group()
+        queue.put((rank, results))
+    except BaseException:
+        queue.put((rank, traceback.format_exc()))
+        raise
+
+
+def _p16_spawn(world: int, backend: str, jobs) -> list[dict]:
+    """Run ``jobs`` on ``world`` spawned ranks; fail if a rank fails or hangs."""
+    import queue as queue_module
+    import socket
+
+    import torch.multiprocessing as mp
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    ctx = mp.get_context("spawn")
+    queue = ctx.Queue()
+    procs = [
+        ctx.Process(target=_p16_rank, args=(r, world, port, backend, jobs, queue))
+        for r in range(world)
+    ]
+    for proc in procs:
+        proc.start()
+    results: dict[int, dict] = {}
+    deadline = time.monotonic() + P16_TIMEOUT_S
+    try:
+        while len(results) < world:
+            try:
+                rank, out = queue.get(timeout=5)
+            except queue_module.Empty:
+                # A rank that died without a word (at start-up, say) fails
+                # the phase now rather than at the deadline.
+                dead = [p.exitcode for p in procs if p.exitcode not in (None, 0)]
+                if dead or time.monotonic() > deadline:
+                    raise RuntimeError(
+                        f"phase 16: {world} rank(s) hung or died: exit codes"
+                        f" {[p.exitcode for p in procs]}"
+                    ) from None
+                continue
+            if isinstance(out, str):
+                raise RuntimeError(f"phase 16: rank {rank} of {world} failed:\n{out}")
+            results[rank] = out
+    finally:
+        for proc in procs:
+            proc.join(timeout=60)
+            if proc.is_alive():
+                proc.kill()
+                proc.join()
+    if any(proc.exitcode != 0 for proc in procs):
+        raise RuntimeError(f"phase 16: rank exit codes {[p.exitcode for p in procs]}")
+    return [results[r] for r in range(world)]
+
+
+def _field_rel(mine, ref) -> float:
+    return float(np.abs(np.asarray(mine) - ref).max() / np.abs(ref).max())
+
+
+def _p16_references() -> None:
+    """Run again the earlier phases whose grids phase 16 compares with."""
+    if "phase 5" not in REFERENCES:
+        iters, err, _, _, grid = _navier_stokes("direct")
+        REFERENCES["phase 5"] = (iters, err, grid)
+    if "phase 8" not in REFERENCES:
+        REFERENCES["phase 8"] = _mixed_poisson_at_size(P16_MESH, P16_ORDER, "schur_direct", 16)
+    if "phase 12" not in REFERENCES:
+        REFERENCES["phase 12"] = _linear_heat_march()[4]
+    if "phase 14" not in REFERENCES:
+        import mfv2d_torch as mf
+
+        mesh = mf.examples.unit_square_mesh(32, 32, 4)
+        for _ in JAX_HP_ROUNDS:
+            mesh = _hp_solve(mesh, "direct", refine=True)[2]
+        REFERENCES["phase 14"] = (mesh, _hp_solve(mesh, "schur_direct", refine=False)[0])
+
+
+def _p16_print(label: str, ranks: list[dict]) -> None:
+    r0 = ranks[0]
+    print(
+        f"phase {label}: {len(ranks)} rank(s), backend {r0['backend']}, devices"
+        f" {[r['device'] for r in ranks]}: {r0['unknowns']} unknowns ({r0['multipliers']}"
+        f" multipliers), {r0['iterations']} residual evaluations, Krylov"
+        f" {r0['krylov']}, error {r0['error']!r}, wall {r0['wall_s']:.3f} s"
+    )
+    for rank, r in enumerate(ranks):
+        print(
+            f"  rank {rank}: all_reduce calls {r['counts']} ({r['raw_reduces']} in all),"
+            f" trace matvecs {r['matvecs']},"
+            f" launches {r['launches']}, peak {r['peak_bytes']} bytes, M1 by (p1, p2, nq, E)"
+            f" {r['m1_shapes']}, inverse by (n, E) {r['inverse_shapes']}"
+        )
+    for stage, total in sorted(r0["stages"].items(), key=lambda kv: -kv[1]):
+        print(f"  stage {stage:40s} {total:9.4f} s")
+
+
+def _p16_check_ranks(label: str, ranks: list[dict]) -> None:
+    """Every rank returns the same answer, reduces once per trace matvec
+    and launches both kernels."""
+    for rank, r in enumerate(ranks):
+        if not np.array_equal(r["points"], ranks[0]["points"]):
+            raise RuntimeError(f"{label}: rank {rank} returned another answer")
+        # Beside the trace matvecs: two reduces a residual evaluation (the
+        # trace value and the norm), one a Picard update (its Schur
+        # right-hand side), one a bucket at set-up, and the DoF gathers (one
+        # at the end, one an update when checkpointing).  No other reduce
+        # is made, so what is left of the total is one a matvec.
+        counts, evals, updates = r["counts"], r["iterations"], len(r["krylov"])
+        others = {"setup": r["buckets"], "residual": evals, "norm": evals, "rhs": updates,
+                  "gather": 1 + (updates if r["checkpointing"] else 0)}
+        want = {**others, "schur": r["matvecs"]}
+        if (
+            counts != {tag: n for tag, n in want.items() if n}
+            or r["raw_reduces"] != sum(counts.values())
+            or r["raw_reduces"] - sum(others.values()) != r["matvecs"]
+            or (updates and r["matvecs"] <= 0)
+        ):
+            raise RuntimeError(
+                f"{label}: rank {rank}: {counts} ({r['raw_reduces']} in all) for"
+                f" {r['matvecs']} matvecs, {evals} evaluations, {updates} updates"
+            )
+        if not (r["launches"]["mass_edge"] > 0 and r["launches"]["gj_inverse"] > 0):
+            raise RuntimeError(f"{label}: rank {rank} launched {r['launches']}")
+
+
+def phase16_parallel() -> dict:
+    import shutil
+
+    import mfv2d_torch as mf
+
+    _p16_references()
+    work = ROOT / "build" / "phase16"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    cut, resumed = str(work / "cut.npz"), str(work / "resumed.npz")
+    hp_mesh, hp_ref = REFERENCES["phase 14"]
+    two_cards = torch.cuda.device_count() >= 2
+    backend = "nccl" if two_cards else "gloo"
+    print(
+        f"  phase 16: {torch.cuda.device_count()} card(s) visible; 2 ranks on {backend}"
+        + ("" if two_cards else " with both ranks on cuda:0 (NCCL takes one rank a card)")
+    )
+
+    # 16b, 16d and 16c on 2 ranks, 16c cut after P16_CUT iterations and
+    # resumed from its file (the sharded part of 16e); then 16a and the
+    # world-size-1 resume from the 2-rank file on 1 rank.
+    two = _p16_spawn(2, backend, [
+        ("16b", {"problem": "poisson"}),
+        ("16d", {"problem": "hp", "hp_mesh": hp_mesh}),
+        ("16c cut", {"problem": "ns", "max_iters": P16_CUT, "path": cut}),
+        ("16c resumed", {"problem": "ns", "path": resumed, "resume": cut}),
+    ])
+    one = _p16_spawn(1, "nccl", [
+        ("16a", {"problem": "poisson"}),
+        ("16e world 1", {"problem": "ns", "path": str(work / "world1.npz"), "resume": resumed}),
+    ])
+    by_job = {name: [r[name] for r in two] for name in two[0]}
+    by_job.update({name: [r[name] for r in one] for name in one[0]})
+
+    # 16a: world size 1 against phase 8's static condensation.
+    a = by_job["16a"][0]
+    _p16_print("16a", by_job["16a"])
+    ref8 = REFERENCES["phase 8"]
+    gap_a = max(_field_rel(a["fields"][k], ref8.point_data[k]) for k in ("u", "q"))
+    print(f"  16a against phase 8's schur_direct: {gap_a:.3e} (relative)")
+    if not (gap_a <= P16_TOL and a["error"] <= 1e-8):
+        raise RuntimeError(f"16a: {gap_a:.3e} from phase 8, error {a['error']!r}")
+    # 16b: 2 ranks against 16a, each rank at half the elements.
+    _p16_print("16b", by_job["16b"])
+    gap_b = max(_field_rel(by_job["16b"][0]["fields"][k], a["fields"][k]) for k in ("u", "q"))
+    print(f"  16b against 16a: {gap_b:.3e} (relative)")
+    if not gap_b <= P16_TOL:
+        raise RuntimeError(f"16b: {gap_b:.3e} from 16a")
+    half = P16_MESH**2 // 2
+    n208 = 2 * P16_ORDER * (P16_ORDER + 1) + P16_ORDER**2
+    for rank, r in enumerate(by_job["16b"]):
+        m1 = [k for k, v in r["m1_shapes"].items() if k[3] == half and v > 0]
+        if not m1 or r["inverse_shapes"].get((n208, half), 0) <= 0:
+            raise RuntimeError(f"16b: rank {rank} did not launch both kernels at E={half}")
+    for job in ("16a", "16b", "16c cut", "16c resumed", "16d", "16e world 1"):
+        _p16_check_ranks(job, by_job[job])
+
+    # 16c: Navier-Stokes at 2 ranks through trace GMRES, cut and resumed,
+    # against phase 5.
+    _p16_print("16c cut", by_job["16c cut"])
+    _p16_print("16c resumed", by_job["16c resumed"])
+    c_cut, c = by_job["16c cut"][0], by_job["16c resumed"][0]
+    iters5, err5, grid5 = REFERENCES["phase 5"]
+    updates = len(c_cut["krylov"]) + len(c["krylov"])
+    gap_c = _field_rel(c["points"], grid5.point_data["vel"])
+    print(
+        f"  16c: {len(c_cut['krylov'])} + {len(c['krylov'])} Picard updates (phase 5:"
+        f" {iters5}; the JAX package: {JAX_NS_PICARD_ITERATIONS}), velocity error"
+        f" {c['error']!r} (phase 5: {err5!r}, {abs(c['error'] - err5) / err5:.3e}"
+        f" relative), velocity against phase 5: {gap_c:.3e} (relative)"
+    )
+    if updates != iters5 or not (gap_c <= P16_TOL and c["error"] <= 1e-8):
+        raise RuntimeError(f"16c: {updates} updates, {gap_c:.3e} from phase 5")
+
+    # 16d: phase 14's final hp mesh at 2 ranks.
+    d = by_job["16d"][0]
+    _p16_print("16d", by_job["16d"])
+    gap_d = max(_field_rel(d["fields"][k], hp_ref.point_data[k]) for k in ("u", "q"))
+    print(f"  16d against phase 14's schur_direct: {gap_d:.3e} (relative)")
+    if d["unknowns"] != JAX_HP_FINAL[1] or not gap_d <= P16_TOL:
+        raise RuntimeError(f"16d: {d['unknowns']} unknowns, {gap_d:.3e} from phase 14")
+
+    # 16e: checkpoints on the card.
+    checkpoints = _p16_checkpoints(work, iters5, grid5)
+    e_one = by_job["16e world 1"][0]
+    from mfv2d_torch.checkpoint import load_steady_state
+
+    files = [load_steady_state(f)["iteration"] for f in (cut, resumed)]
+    gap_one = _field_rel(e_one["points"], c["points"])
+    print(
+        f"phase 16e: 2 ranks, cut after {c_cut['iterations']} residual evaluations and"
+        f" resumed for {c['iterations']} (files at iterations {files}); the 2-rank file"
+        f" resumes 1 rank in {e_one['iterations']} evaluation(s), {gap_one:.3e} from 16c"
+    )
+    # The sharded branch counts residual evaluations, the cut's P16_CUT and
+    # the resumed run's updates + 1: phase 5's iterations + 1 in all.
+    if (
+        files != [P16_CUT, iters5 + 1]
+        or c_cut["iterations"] + c["iterations"] != iters5 + 1
+        or e_one["iterations"] > 1
+        or not gap_one <= 1e-12
+    ):
+        raise RuntimeError("16e: the sharded resume does not add up")
+
+    shapes = _p16_kernels(by_job["16b"][0])
+    return {
+        "gaps": {"16a": gap_a, "16b": gap_b, "16c": gap_c, "16d": gap_d, "16e": gap_one},
+        "checkpoints": checkpoints,
+        "runs": {
+            job: {
+                **{k: v for k, v in rs[0].items() if k not in ("points", "fields")},
+                "m1_shapes": {str(k): v for k, v in rs[0]["m1_shapes"].items()},
+                "inverse_shapes": {str(k): v for k, v in rs[0]["inverse_shapes"].items()},
+            }
+            for job, rs in by_job.items()
+        },
+        **shapes,
+    }
+
+
+def _p16_checkpoints(work, iters5: int, grid5) -> dict:
+    """16e on one card: the linear heat march cut and resumed, and phase
+    5's Navier-Stokes solve cut and resumed, both on the host loops."""
+    import mfv2d_torch as mf
+    from mfv2d_torch.models import flow
+
+    path = str(work / "heat.npz")
+    half = LINEAR_HEAT_NT // 2
+    _linear_heat_march(half, mf.CheckpointSettings(path, every=16))
+    stats, _, wall, _, resumed = _linear_heat_march(
+        LINEAR_HEAT_NT, mf.CheckpointSettings(path, every=16, resume_from=path)
+    )
+    _, _, _, _, whole = _linear_heat_march(
+        LINEAR_HEAT_NT, mf.CheckpointSettings(str(work / "heat-whole.npz"), every=16)
+    )
+    gap_host = float(np.abs(resumed.point_data["u"] - whole.point_data["u"]).max())
+    gap_fused = _field_rel(resumed.point_data["u"], REFERENCES["phase 12"].point_data["u"])
+    print(
+        f"phase 16e: linear heat march 16x16 p=4, {half} steps then resumed to"
+        f" {LINEAR_HEAT_NT} (every=16): against the uninterrupted host march"
+        f" {gap_host:.3e}, against phase 12's fused march {gap_fused:.3e} (relative)"
+    )
+    if not (gap_host <= 1e-13 and gap_fused <= 1e-10):
+        raise RuntimeError("16e: the resumed heat march disagrees")
+
+    model = flow.navier_stokes(10.0)
+    path = str(work / "ns.npz")
+    iterations = []
+    for max_iter, resume in ((P16_CUT, None), (80, path)):
+        mesh = mf.examples.unit_square_mesh(16, 16, 5)
+        bc = mf.BoundaryCondition2DSteady(model.velocity, mesh.boundary_indices, flow.ns_velocity_exact)
+        grids, stats, _ = mf.solve_system_2d(
+            mesh,
+            mf.SystemSettings(model.system, [bc], [(0.0, model.pressure)]),
+            mf.SolverSettings(mf.ConvergenceSettings(max_iter, 1e-8, 0.0), relaxation=0.7),
+            recon_order=10,
+            device="cuda",
+            checkpoint_settings=mf.CheckpointSettings(path, every=1, resume_from=resume),
+        )
+        iterations.append(int(stats.iter_history[0]))
+    gap_ns = _field_rel(grids[-1].point_data["vel"], grid5.point_data["vel"])
+    print(
+        f"phase 16e: Navier-Stokes 16x16 p=5 direct, {iterations[0]} iterations then"
+        f" {iterations[1]} resumed (phase 5: {iters5}), against phase 5 {gap_ns:.3e}"
+    )
+    if sum(iterations) != iters5 or not gap_ns <= 1e-12:
+        raise RuntimeError("16e: the resumed Navier-Stokes solve disagrees")
+    return {"heat_vs_host": gap_host, "heat_vs_fused": gap_fused, "ns_iterations": iterations,
+            "ns_vs_phase5": gap_ns}
+
+
+def _p16_kernels(run: dict) -> dict:
+    """Both kernels at 16b's per-rank shapes, on rank 0's own elements of
+    the 64x64 p=8 mesh, held against their plain versions and timed."""
+    import mfv2d_torch as mf
+    from mfv2d_torch.compiler import CompiledSystem
+    from mfv2d_torch.evaluation import ElementBatch, compute_element_matrices
+    from mfv2d_torch.models import poisson
+    from mfv2d_torch.ops.basis import FemCache
+    from mfv2d_torch.ops.kernels import gj_inverse
+    from mfv2d_torch.solver.discretization import discretize_mesh
+
+    system = poisson.mixed_poisson().system
+    disc = discretize_mesh(
+        mf.examples.unit_square_mesh(P16_MESH, P16_MESH, P16_ORDER), system.unknown_forms,
+        FemCache(3), device="cuda",
+    )
+    bucket = disc.buckets[0]
+    e = bucket.batch.n_elements // 2
+    batch = ElementBatch(bucket.batch.basis, bucket.batch.corners_np[:e], "cuda")
+    key_m1 = (batch.tb.p1, batch.tb.p2, batch.tb.w.size, e)
+    m1 = _time_mass_edge(batch.tb, batch.jac, f"p={P16_ORDER} E={e} (a rank's half)",
+                         "phase 16b", phase=16)
+    m1["launches"] = run["m1_shapes"][key_m1]
+    blocks = compute_element_matrices(disc.form_spec, CompiledSystem(system).linear_blocks, batch)
+    out, ref = gj_inverse.gj_inverse(blocks), torch.linalg.inv(blocks)
+    err = rel_err(out, ref)
+    if not err <= INVERSE_TOL[torch.float64]:
+        raise RuntimeError(f"16b: the inverse kernel disagrees at E={e}: {err:.3e}")
+    inverse = _time_inverse(blocks, f"phase-16b blocks n={blocks.shape[1]} E={e}", phase=16)
+    inverse["max_abs_err"] = float((out - ref).abs().max())
+    inverse["launches"] = run["inverse_shapes"][(blocks.shape[1], e)]
+    inverse["launches_in"] = "phase 16b"
+    return {"mass_edge": m1, "gj_inverse": inverse}
+
+
+def _p16_kernel_entries(parallel: dict) -> list[dict]:
+    m1, inverse = parallel["mass_edge"], parallel["gj_inverse"]
+    return [
+        {
+            "name": "mass_edge",
+            "route": "cuda",
+            "source": "mfv2d_torch/csrc/mass_edge.cu",
+            "replaces": "mfv2d_tpu/ops/pallas_mass.py:113",
+            **m1,
+        },
+        {
+            **inverse,
+            "name": "gj_inverse",
+            "route": "cuda",
+            "inverse_route": inverse["route"],
+            "source": "mfv2d_torch/csrc/gj_inverse.cu",
+            "replaces": "mfv2d_tpu/ops/pallas_factor.py:136",
+            "plain_ms": inverse["library_ms"],
+        },
+    ]
+
+
+def _p16_report(parallel: dict) -> dict:
+    """Phase 16 alone (--probe parallel): its runs and its kernel entries."""
+    return {"runs": parallel["runs"], "gaps": parallel["gaps"],
+            "checkpoints": parallel["checkpoints"], "kernels": _p16_kernel_entries(parallel)}
+
+
 # Wall seconds of each phase after the build, printed before the reports.
 PHASE_WALLS: dict[str, float] = {}
 
@@ -1825,9 +2356,9 @@ def main() -> int:
         "--probe",
         nargs="?",
         const="inverse",
-        choices=("inverse", "mass", "hp", "vms"),
+        choices=("inverse", "mass", "hp", "vms", "parallel"),
         help="phases 0 and 1, then only phase 6 (inverse, the default), 2 (mass),"
-        " 14 (hp) or 15 (vms)",
+        " 14 (hp), 15 (vms) or 16 (parallel)",
     )
     args = parser.parse_args()
 
@@ -1838,6 +2369,9 @@ def main() -> int:
         return 0
     if args.probe == "vms":
         print(json.dumps(phase15_vms()))
+        return 0
+    if args.probe == "parallel":
+        print(json.dumps(_p16_report(phase16_parallel())))
         return 0
     if args.probe == "inverse":
         print(json.dumps(phase6_inverse_vs_plain()))
@@ -1861,6 +2395,7 @@ def main() -> int:
     mass_launches.append(p16_mass_launches)
     hp = _timed("14", phase14_hp)
     vms = _timed("15", phase15_vms)
+    parallel = _timed("16", phase16_parallel)
     print(f"phase walls (s): {PHASE_WALLS}")
     # One mass_edge entry per timed shape, each with the launches of the
     # main path its "launches_in" names: phases 4, 8, 10 and 13.  The
@@ -1950,6 +2485,9 @@ def main() -> int:
                 }
                 for timing in vms["gj_inverse"]
             ),
+            # Phase 16: both kernels at the per-rank shapes of 16b (half of
+            # the 64x64 p=8 mesh a rank), with rank 0's launches there.
+            *_p16_kernel_entries(parallel),
         ]
     }
     print(json.dumps(report))

@@ -7,7 +7,9 @@ the caller passes ``device="cpu"``, with the 1-form mass matrix and the
 element inverses computed by hand-written CUDA kernels on the GPU.  Steady
 Picard and Newton solves, the trapezoidal time marches, hp refinement and
 VMS fine-scale estimation (``VMSSettings``, ``ErrorEstimateVMS``) are
-ported; see ROADMAP.md for what is still to come.
+ported, with checkpoints (``CheckpointSettings``) and the element-sharded
+steady Picard solve over ``torch.distributed`` (``SolverSettings.device_mesh``);
+see ROADMAP.md for what is still to come.
 """
 
 from mfv2d_torch import examples as examples
@@ -76,3 +78,8 @@ from mfv2d_torch.solver.solve import SystemSettings as SystemSettings
 from mfv2d_torch.solver.solve import TimeSettings as TimeSettings
 from mfv2d_torch.solver.solve import VMSSettings as VMSSettings
 from mfv2d_torch.solve_system_2d import solve_system_2d as solve_system_2d
+
+# Checkpointing
+from mfv2d_torch.checkpoint import CheckpointSettings as CheckpointSettings
+from mfv2d_torch.checkpoint import load_mesh as load_mesh
+from mfv2d_torch.checkpoint import save_mesh as save_mesh

@@ -19,12 +19,17 @@ Orchestrates the pipeline (reference: python/mfv2d/solve_system_2d.py):
 
 With ``vms_settings`` the Picard loop carries the VMS fine scales
 (solver/vms.py) and the output grids their ``vms-<form>`` point data.
-Multi-device solves and checkpoints are not ported yet and raise
+With ``checkpoint_settings`` marches and steady solves save their state and
+resume from it (checkpoint.py), on the host loops.  With
+``SolverSettings.device_mesh`` the steady Picard solve runs element-sharded
+over ``torch.distributed`` (parallel/sharding.py); the sharded marches,
+Newton, VMS and refinement are not ported yet and raise
 ``NotImplementedError`` naming the ROADMAP item that will port them.
 """
 
 from __future__ import annotations
 
+import os
 import time
 from collections.abc import Sequence
 
@@ -59,11 +64,63 @@ from mfv2d_torch.unported import not_ported
 from mfv2d_torch.vis import ReconstructedGrid
 
 
-def _check_ported(solver_settings: SolverSettings, checkpoint_settings) -> None:
-    if solver_settings.device_mesh is not None:
-        raise not_ported("SolverSettings.device_mesh (multi-device)", "10")
-    if checkpoint_settings is not None:
-        raise not_ported("checkpoint_settings (checkpoints)", "11")
+def _check_ported(
+    solver_settings: SolverSettings, time_settings, vms_settings, refinement_settings
+) -> None:
+    if solver_settings.device_mesh is None:
+        return
+    for given, what in (
+        (time_settings is not None, "time marches"),
+        (solver_settings.method == "newton", "Newton"),
+        (vms_settings is not None, "VMS"),
+        (refinement_settings is not None, "refinement"),
+    ):
+        if given:
+            raise not_ported(f"SolverSettings.device_mesh with {what} (multi-device)", "10")
+
+
+def _check_state_size(state: dict, n_dofs: int) -> dict:
+    if state["solution"].size != n_dofs:
+        raise ValueError(
+            "Checkpoint DoF count does not match the mesh/system:"
+            f" {state['solution'].size} != {n_dofs}."
+        )
+    return state
+
+
+def _steady_checkpointer(checkpoint_settings, n_dofs: int, writes: bool = True):
+    """Steady resume state and save hook, in the JAX package's file format.
+
+    Returns ``(state, save)``: the state loaded from ``resume_from`` (None
+    where there is none; a missing file means a first attempt), and
+    ``save(iterations, solution, lagrange, unresolved, final=False)``, which
+    writes every ``every`` iterations of this attempt and always at the end.
+    The iteration count and the elapsed time add on to the resumed file's.
+    Only a caller with ``writes`` writes the file.
+    """
+    from mfv2d_torch.checkpoint import load_steady_state, save_steady_state
+
+    state = None
+    resume = checkpoint_settings.resume_from
+    if resume and os.path.exists(resume):
+        state = _check_state_size(load_steady_state(resume), n_dofs)
+    prior_iterations = 0 if state is None else state["iteration"]
+    prior_elapsed = 0.0 if state is None else state["elapsed"]
+    t0 = time.perf_counter()
+    every = max(1, checkpoint_settings.every)
+
+    def save(iterations, solution, lagrange, unresolved, final=False) -> None:
+        if writes and (final or iterations % every == 0):
+            save_steady_state(
+                checkpoint_settings.path,
+                solution,
+                lagrange,
+                unresolved,
+                prior_iterations + iterations,
+                prior_elapsed + time.perf_counter() - t0,
+            )
+
+    return state, save
 
 
 def _check_vms_settings(
@@ -146,7 +203,7 @@ def solve_system_2d(
     ``refinement_settings`` the refined mesh, whose last grid carries the
     ``error_estimate`` and ``h_ref_cost_estimate`` cell data.
     """
-    _check_ported(solver_settings, checkpoint_settings)
+    _check_ported(solver_settings, time_settings, vms_settings, refinement_settings)
     _check_vms_settings(system_settings, vms_settings)
     system = system_settings.system
     constrained_forms = system_settings.constrained_forms
@@ -197,6 +254,17 @@ def solve_system_2d(
         if len(time_settings.time_march_relations) < 1:
             raise ValueError("Problem has no time march relations.")
         system = update_system_for_time_march(time_settings, system)
+
+    if solver_settings.device_mesh is not None:
+        return _solve_sharded(
+            mesh,
+            system_settings,
+            solver_settings,
+            basis_cache,
+            recon_order,
+            boundary_conditions if boundary_conditions is not None else [],
+            checkpoint_settings,
+        )
 
     # The evaluator host-evaluates callable fields at construction, so any
     # TimeDependent clock state left over from a previous march must reset
@@ -323,17 +391,42 @@ def solve_system_2d(
     rtol = conv.relative_tolerance
     newton = solver_settings.method == "newton"
 
+    # Resume from a checkpoint: a march restores its solution, multipliers
+    # and trapezoidal carry and skips the steps already taken; a steady solve
+    # restores its iterate and the VMS fine scales.
+    start_index = 0
+    steady_save = None
+    if checkpoint_settings is not None and time_settings is None:
+        state, steady_save = _steady_checkpointer(checkpoint_settings, disc.n_dofs)
+        if state is not None:
+            solution = state["solution"]
+            global_lagrange = state["lagrange"]
+            fine_scales = state["fine_scales"]
+    elif checkpoint_settings is not None and checkpoint_settings.resume_from:
+        from mfv2d_torch.checkpoint import load_march_state
+
+        state = _check_state_size(load_march_state(checkpoint_settings.resume_from), disc.n_dofs)
+        solution = state["solution"]
+        global_lagrange = state["lagrange"]
+        old_solution_carry = state["old_carry"]
+        time_carry_term = state["carry_term"]
+        start_index = state["time_index"]
+
+    # The first grid shows the state the solve starts from, at its time.
     grid = reconstruct_mesh_from_solution(disc, recon_order, solution)
-    grid.field_data["time"] = np.array([0.0])
+    grid.field_data["time"] = np.array(
+        [start_index * time_settings.dt if time_settings is not None else 0.0]
+    )
     resulting_grids: list[ReconstructedGrid] = [grid]
 
     # The dense solver runs its loops on the device (solver/fused.py) unless
-    # something forces a host loop: VMS, per-iteration output, or a march
-    # whose boundary values, forcing or operator change with time.
+    # something forces a host loop: VMS, per-iteration output, checkpoints,
+    # or a march whose boundary values, forcing or operator change with time.
     fused = (
         solver_settings.linear_solver == "dense"
         and sg_operator is None
         and not print_residual
+        and checkpoint_settings is None
         and not has_unsteady_bcs
         and not has_td_rhs
         and not has_td_fields
@@ -384,7 +477,7 @@ def solve_system_2d(
             if (has_unsteady_bcs and not has_td_rhs)
             else None
         )
-        for time_index in range(nt):
+        for time_index in range(start_index, nt):
             t_next = (time_index + 1) * dt
             if has_td_fields:
                 # TimeDependent OPERATOR fields: re-evaluate the field at the
@@ -488,6 +581,22 @@ def solve_system_2d(
             )
             old_solution_carry = new_solution_carry
 
+            if checkpoint_settings is not None and (
+                (time_index + 1) % checkpoint_settings.every == 0 or time_index + 1 == nt
+            ):
+                from mfv2d_torch.checkpoint import save_march_state
+
+                save_march_state(
+                    checkpoint_settings.path,
+                    mesh,
+                    solution,
+                    global_lagrange,
+                    old_solution_carry,
+                    time_carry_term,
+                    time_index + 1,
+                    dt,
+                )
+
             if (time_index % time_settings.sample_rate) == 0 or time_index + 1 == nt:
                 grid = reconstruct_mesh_from_solution(
                     disc, recon_order, solution, _vms_to_coarse(sg_operator, fine_scales, disc)
@@ -544,7 +653,10 @@ def solve_system_2d(
                 newton=newton,
                 fine_scales=fine_scales,
                 sg_operator=sg_operator,
+                checkpoint_cb=steady_save,
             )
+            if steady_save is not None:
+                steady_save(iter_cnt, solution, global_lagrange, fine_scales, final=True)
         changes = np.asarray(all_residuals)[:iter_cnt]
         iters = np.array((iter_cnt,), np.uint32)
         resulting_grids.append(
@@ -612,6 +724,90 @@ def solve_system_2d(
     if tracer.enabled:
         print(tracer.report())
     return tuple(resulting_grids), stats, output_mesh
+
+
+def _solve_sharded(
+    mesh: Mesh,
+    system_settings: SystemSettings,
+    solver_settings: SolverSettings,
+    basis_cache: FemCache,
+    recon_order: int | None,
+    boundary_conditions,
+    checkpoint_settings,
+) -> tuple[Sequence[ReconstructedGrid], SolutionStatistics, Mesh]:
+    """The steady Picard solve, element-sharded over ``device_mesh``.
+
+    Every rank calls this with the same arguments and returns the same
+    grids and statistics (parallel/sharding.py).  As in the JAX package's
+    sharded branch, the one grid is the converged solution and the
+    iteration count is the number of residual evaluations, and
+    ``SolverSettings.anderson_m`` is not read.  Checkpoints use the single-device file format, so the two
+    paths' files interchange; rank 0 writes them and every rank reads them.
+    """
+    from mfv2d_torch.parallel.sharding import sharded_steady_solve, trace_comm
+    from mfv2d_torch.tracing import tracer
+
+    system = system_settings.system
+    comm = trace_comm(solver_settings.device_mesh)
+    conv = solver_settings.convergence
+    t_solve = time.perf_counter()
+    with tracer.stage("setup"):
+        disc = discretize_mesh(mesh, system.unknown_forms, basis_cache, comm.device)
+    initial_solution = None
+    if system_settings.initial_conditions:
+        _, initial_solution = compute_initial_solution(
+            disc, system, system_settings.initial_conditions
+        )
+
+    state, ckpt_cb = None, None
+    if checkpoint_settings is not None:
+        state, save = _steady_checkpointer(
+            checkpoint_settings, disc.n_dofs, writes=comm.rank == 0
+        )
+
+        def ckpt_cb(iterations, solution, lagrange, unresolved, final=False):
+            save(iterations, solution, lagrange, unresolved, final)
+            comm.barrier()
+
+    solution, lagrange, residuals = sharded_steady_solve(
+        system,
+        disc,
+        comm,
+        boundary_conditions=boundary_conditions,
+        constrained_forms=system_settings.constrained_forms,
+        maximum_iterations=conv.maximum_iterations,
+        relax=solver_settings.relaxation,
+        absolute_tolerance=conv.absolute_tolerance,
+        relative_tolerance=conv.relative_tolerance,
+        cg_maximum_iterations=max(200, 4 * disc.n_dofs),
+        cg_tolerance=conv.absolute_tolerance * 1e-3,
+        krylov_method="gmres" if solver_settings.linear_solver == "gmres" else "cg",
+        initial_solution=initial_solution if state is None else state["solution"],
+        initial_lagrange=None if state is None else state["lagrange"],
+        checkpoint_cb=ckpt_cb,
+    )
+    if ckpt_cb is not None:
+        # The final iterate, whatever ``every`` is; the JAX package's sharded
+        # branch counts its residual evaluations here.
+        ckpt_cb(len(residuals), solution, lagrange, None, final=True)
+    grid = reconstruct_mesh_from_solution(disc, recon_order, solution)
+    grid.field_data["time"] = np.array([0.0])
+    tracer.add("solve+reconstruct", time.perf_counter() - t_solve)
+
+    orders, counts = np.unique(disc.element_orders, axis=0, return_counts=True)
+    stats = SolutionStatistics(
+        element_orders={(int(o[0]), int(o[1])): int(c) for o, c in zip(orders, counts)},
+        n_total_dofs=disc.n_dofs + lagrange.size,
+        n_lagrange=int(lagrange.size),
+        n_elems=mesh.element_count,
+        n_leaves=mesh.leaf_count,
+        n_leaf_dofs=disc.n_dofs,
+        iter_history=np.array((len(residuals),), np.uint32),
+        residual_history=np.asarray(residuals),
+    )
+    if tracer.enabled:
+        print(tracer.report())
+    return (grid,), stats, mesh
 
 
 def update_system_for_time_march(

@@ -34,9 +34,12 @@ Not ported from the JAX module, and the ROADMAP entry that covers each:
   its saddle blocks on the device and needs none of it.
 - The f32, f32x2 and condensed-c32/c64 operator tables and their applies,
   ``trace_indefinite`` and the mixed TPU ladder (``_mixed_sweep_factory``,
-  ``_solve_schur_mixed_tpu``), with ``solver/krylov.py`` that only they and
-  the sharded paths use: "Do not port", and module item 10 for the sharded
-  Krylov loops.
+  ``_solve_schur_mixed_tpu``): "Do not port".  The f64 loops of the JAX
+  package's ``solver/krylov.py`` serve the sharded trace solves
+  (:mod:`mfv2d_torch.solver.krylov`).  ``cg_general`` and ``gmres_general``
+  below are the reference's algorithms (a start vector, the min of the
+  absolute and relative tolerances, the last iterate, modified
+  Gram-Schmidt), as in the JAX module, and share no loop with it.
 - ``MixedPrecisionLU`` (the TPU's refined f32 dense LU): "Do not port".
 - The Ozaki arguments (``ozaki=`` GEMMs): "Do not port".
 """

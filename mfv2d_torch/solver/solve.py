@@ -75,6 +75,9 @@ class SolverSettings:
     or "newton" (exact element Jacobians by forward-mode differentiation,
     rebuilt every iteration)."""
     device_mesh: object | None = None
+    """A one-dimensional ``torch.distributed`` DeviceMesh, or the
+    ``parallel.sharding.TraceComm`` of one: the steady Picard solve then
+    runs element-sharded over its ranks, every rank calling alike."""
     anderson_m: int = 0
     """Anderson acceleration window for the Picard loop (0 = off, the
     reference behavior).  With ``m > 0`` each update extrapolates over the
@@ -422,6 +425,40 @@ def _preconditioned_newton_solve(
     return d, False
 
 
+def anderson_step(
+    aa_x: list[np.ndarray],
+    aa_f: list[np.ndarray],
+    x_k: np.ndarray,
+    f_k: np.ndarray,
+    anderson_m: int,
+    restart: bool,
+) -> np.ndarray:
+    """One guarded type-II Anderson step for the fixed point ``x + f(x)``.
+
+    ``aa_x``/``aa_f`` hold the last ``anderson_m + 1`` iterates and steps and
+    are updated in place (emptied first when ``restart``).  The coefficients
+    solve ``min |dF gamma - f_k|`` by ``lstsq(rcond=1e-10)``; where one
+    exceeds 25 the differences are near-singular and the plain step
+    ``x_k + f_k`` is taken.  Returns the next iterate.
+    """
+    if restart:
+        aa_x.clear()
+        aa_f.clear()
+    aa_x.append(x_k)
+    aa_f.append(f_k)
+    if len(aa_x) > anderson_m + 1:
+        aa_x.pop(0)
+        aa_f.pop(0)
+    x_new = x_k + f_k
+    if len(aa_f) > 1:
+        df = np.stack([aa_f[i + 1] - aa_f[i] for i in range(len(aa_f) - 1)], axis=1)
+        dx = np.stack([aa_x[i + 1] - aa_x[i] for i in range(len(aa_x) - 1)], axis=1)
+        gamma, *_ = np.linalg.lstsq(df, f_k, rcond=1e-10)
+        if np.abs(gamma).max() <= 25.0:
+            x_new = x_k + f_k - (dx + df) @ gamma
+    return x_new
+
+
 def non_linear_solve_run(
     max_iterations: int,
     relax: float,
@@ -443,6 +480,7 @@ def non_linear_solve_run(
     newton: bool = False,
     fine_scales: np.ndarray | None = None,
     sg_operator=None,
+    checkpoint_cb=None,
 ):
     """Picard / defect-correction iteration (reference solve_system.py:354).
 
@@ -580,31 +618,13 @@ def non_linear_solve_run(
                 if n_lag
                 else np.array(solution)
             )
-            f_k = relax * np.asarray(d_solution)
             # Residual growth means the local linearization shifted (or the
             # VMS forcing moved); stale pairs then extrapolate the wrong
             # map — restart the window.
-            if iter_cnt >= 1 and residuals[iter_cnt] > residuals[iter_cnt - 1]:
-                aa_x.clear()
-                aa_f.clear()
-            aa_x.append(x_k)
-            aa_f.append(f_k)
-            if len(aa_x) > anderson_m + 1:
-                aa_x.pop(0)
-                aa_f.pop(0)
-            x_new = x_k + f_k
-            if len(aa_f) > 1:
-                df = np.stack(
-                    [aa_f[i + 1] - aa_f[i] for i in range(len(aa_f) - 1)], axis=1
-                )
-                dx = np.stack(
-                    [aa_x[i + 1] - aa_x[i] for i in range(len(aa_x) - 1)], axis=1
-                )
-                gamma, *_ = np.linalg.lstsq(df, f_k, rcond=1e-10)
-                # Large coefficients signal near-singular differences —
-                # extrapolating there amplifies noise; take the plain step.
-                if np.abs(gamma).max() <= 25.0:
-                    x_new = x_k + f_k - (dx + df) @ gamma
+            grew = iter_cnt >= 1 and residuals[iter_cnt] > residuals[iter_cnt - 1]
+            x_new = anderson_step(
+                aa_x, aa_f, x_k, relax * np.asarray(d_solution), anderson_m, grew
+            )
             if n_lag:
                 solution = x_new[:-n_lag]
                 global_lagrange = x_new[-n_lag:]
@@ -616,6 +636,8 @@ def non_linear_solve_run(
         else:
             solution = solution + relax * d_solution
         iter_cnt += 1
+        if checkpoint_cb is not None:
+            checkpoint_cb(iter_cnt, solution, global_lagrange, unresolved_scales)
 
     if not return_all_residuals:
         return solution, global_lagrange, iter_cnt, np.array(max_residual), unresolved_scales

@@ -8,8 +8,8 @@ estimator, whose fine-scale iteration stops at a tolerance, to 1e-8).
 refined meshes (leaf indices, orders, corners) must be exactly equal.  Two rounds of ``solve_system_2d``
 with refinement on the hp advection-diffusion gallery system must agree to
 1e-10 on solutions and on the estimates in the cell data, with equal meshes;
-the JAX package's round-1 mesh crosses to the port through
-``interop.mesh_from_arrays`` for round 2.
+the JAX package's round-1 mesh crosses to the port in the checkpoint format
+(``checkpoint.mesh_to_arrays`` / ``mesh_from_arrays``) for round 2.
 """
 
 import importlib
@@ -19,10 +19,11 @@ import pytest
 import torch
 
 import mfv2d_torch as tf
+import mfv2d_torch.checkpoint as tcheckpoint
 import mfv2d_torch.refinement as trefinement
 import mfv2d_tpu as jf
+import mfv2d_tpu.checkpoint as jcheckpoint
 import mfv2d_tpu.refinement as jrefinement
-from mfv2d_torch.interop import mesh_arrays, mesh_from_arrays
 from mfv2d_torch.models import flow as tflow
 from mfv2d_torch.models import transport as ttransport
 from mfv2d_tpu.models import flow as jflow
@@ -70,6 +71,14 @@ def bump_flux(x, y):
     gx = -16 * x * np.exp(-8 * (x**2 + y**2)) + 0.05
     gy = -16 * y * np.exp(-8 * (x**2 + y**2))
     return np.stack((gy, -gx), axis=-1)
+
+
+def _tree(mesh):
+    """A mesh's split tree, corners and orders (-1 for a split element), as
+    its own package's checkpoint writes them."""
+    ck = jcheckpoint if type(mesh).__module__.startswith("mfv2d_tpu") else tcheckpoint
+    arrays = ck.mesh_to_arrays(mesh)
+    return arrays["children"], arrays["corners"], arrays["orders"]
 
 
 def rel(mine, ref) -> float:
@@ -218,7 +227,7 @@ def test_estimator_matches_jax(name):
             np.array_equal(disc.mesh.get_leaf_corners(i), c)
             for i, c in zip(disc.leaf_indices, corners_before)
         )
-        results.append((mesh_arrays(mesh), err, cost))
+        results.append((_tree(mesh), err, cost))
     (t_mesh, t_err, t_cost), (j_mesh, j_err, j_cost) = results
     assert rel(t_err, j_err) <= 1e-10
     assert rel(t_cost, j_cost) <= 1e-10
@@ -328,10 +337,10 @@ def test_refine_mesh_matches_jax(limit, anisotropic, ratio, order_limits):
             dir_cost=dir_cost if anisotropic else None,
         )
         assert mesh.leaf_count == leaves.size  # the input mesh is not changed
-        results.append((refined.get_leaf_indices(), *mesh_arrays(refined)))
+        results.append((refined.get_leaf_indices(), *_tree(refined)))
     for mine, ref in zip(*results):
         assert np.array_equal(mine, ref)
-    assert not np.array_equal(results[0][3], mesh_arrays(_mesh_to_refine(tf))[2])
+    assert not np.array_equal(results[0][3], _tree(_mesh_to_refine(tf))[2])
 
 
 def test_refine_mesh_rejects_unknown_limit():
@@ -373,9 +382,8 @@ def _advdif_solve(mf, transport, mesh, estimator, **kwargs):
 def test_refinement_rounds_match_jax(estimator):
     """Two rounds on the hp advection-diffusion system from 3x3 p=2; round 2
     starts in both packages from the JAX package's round-1 mesh."""
-    root = tf.examples.unit_square_mesh(3, 3, 2)
+    t_mesh = tf.examples.unit_square_mesh(3, 3, 2)
     j_mesh = jf.examples.unit_square_mesh(3, 3, 2)
-    t_mesh = root
     for _ in range(2):
         tgrids, tstats, t_out = _advdif_solve(tf, ttransport, t_mesh, estimator, device="cpu")
         jgrids, jstats, j_out = _advdif_solve(jf, jtransport, j_mesh, estimator)
@@ -385,24 +393,26 @@ def test_refinement_rounds_match_jax(estimator):
             assert rel(tgrids[-1].point_data[name], jgrids[-1].point_data[name]) <= 1e-10
         for name in ("error_estimate", "h_ref_cost_estimate"):
             assert rel(tgrids[-1].cell_data[name], jgrids[-1].cell_data[name]) <= 1e-10
-        for mine, ref in zip(mesh_arrays(t_out), mesh_arrays(j_out)):
+        for mine, ref in zip(_tree(t_out), _tree(j_out)):
             assert np.array_equal(mine, ref)
-        before, after = mesh_arrays(j_mesh), mesh_arrays(j_out)
+        before, after = _tree(j_mesh), _tree(j_out)
         # Each round splits elements or raises their orders.
         assert after[0].shape[0] > before[0].shape[0] or (
             after[2] > before[2]
         ).any()
         j_mesh = j_out
-        t_mesh = mesh_from_arrays(root, *after)
+        t_mesh = tcheckpoint.mesh_from_arrays(jcheckpoint.mesh_to_arrays(j_out))
 
 
 def test_mesh_from_arrays_carries_a_refined_mesh():
+    """A JAX package's refined mesh crosses to the port in the checkpoint
+    format, its topology and boundary with it."""
     j_mesh = jf.examples.unit_square_mesh(3, 3, 2)
     j_mesh.split_element(4, (3, 3), (2, 2), (1, 1), (2, 3))
     j_mesh.split_element(j_mesh.get_element_children(4)[2], *([(4, 4)] * 4))
     j_mesh.set_leaf_orders(0, 5, 2)
-    root = tf.examples.unit_square_mesh(3, 3, 2)
-    t_mesh = mesh_from_arrays(root, *mesh_arrays(j_mesh))
+    arrays = jcheckpoint.mesh_to_arrays(j_mesh)
+    t_mesh = tcheckpoint.mesh_from_arrays(arrays)
     assert np.array_equal(t_mesh.get_leaf_indices(), j_mesh.get_leaf_indices())
     for i in range(j_mesh.element_count):
         assert t_mesh.get_element_parent(i) == j_mesh.get_element_parent(i)
@@ -411,14 +421,12 @@ def test_mesh_from_arrays_carries_a_refined_mesh():
     for i in j_mesh.get_leaf_indices():
         assert t_mesh.get_leaf_orders(i) == j_mesh.get_leaf_orders(i)
         assert np.array_equal(t_mesh.get_leaf_corners(i), j_mesh.get_leaf_corners(i))
-    assert root.element_count == 9  # the root is copied, not changed
-    with pytest.raises(ValueError, match="root mesh"):
-        mesh_from_arrays(tf.examples.unit_square_mesh(3, 3, 2, lambda x, y: (x, 0.9 * y)),
-                         *mesh_arrays(j_mesh))
-    children, corners, orders = mesh_arrays(j_mesh)
-    children[4, 1] = 3
-    with pytest.raises(ValueError, match="proper child"):
-        mesh_from_arrays(root, children, corners, orders)
+    assert np.array_equal(t_mesh.boundary_indices, j_mesh.boundary_indices)
+    back = tcheckpoint.mesh_to_arrays(t_mesh)
+    assert sorted(back) == sorted(arrays)
+    for key, ref in arrays.items():
+        assert np.array_equal(back[key], ref), key
+    assert (arrays["orders"][4] == -1).all()  # a split element
 
 
 def _u_skew(x, y):
@@ -469,7 +477,7 @@ def test_vms_estimator_raises_naming_roadmap_item():
             pkg.RefinementLimitElementCount(0.5, 6), False, [], 5, None, [],
         )
         assert [list(disc.mesh.get_leaf_orders(i)) for i in disc.leaf_indices] == orders_before
-        results.append((mesh_arrays(mesh), err, cost))
+        results.append((_tree(mesh), err, cost))
     (t_mesh, t_err, t_cost), (j_mesh, j_err, j_cost) = results
     assert np.all(t_err > 0)
     assert rel(t_err, j_err) <= 1e-8
@@ -497,9 +505,9 @@ def test_vms_estimator_raises_naming_roadmap_item():
     assert np.array_equal(t_stats.iter_history, j_stats.iter_history)
     for name in ("error_estimate", "h_ref_cost_estimate"):
         assert rel(t_grids[-1].cell_data[name], j_grids[-1].cell_data[name]) <= 1e-8
-    for mine, ref in zip(mesh_arrays(t_out), mesh_arrays(j_out)):
+    for mine, ref in zip(_tree(t_out), _tree(j_out)):
         assert np.array_equal(mine, ref)
-    assert (mesh_arrays(t_out)[2] > 2).any()
+    assert (_tree(t_out)[2] > 2).any()
 
     stray = tf.KFormUnknown("w", tf.UnknownFormOrder.FORM_ORDER_2)
     bad = tf.ErrorEstimateVMS(stray, t_system, t_system, 1, 5, 1e-8, 1e-8)

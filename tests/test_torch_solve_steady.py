@@ -229,15 +229,41 @@ def test_stokes_flow_matches_jax(p, linear_solver, monkeypatch):
     assert np.sqrt(np.mean(np.sum((vel - exact) ** 2, axis=-1))) < (1e-2 if p == 2 else 1e-4)
 
 
-def test_unported_options_raise():
+def test_unported_options_raise(tmp_path):
     mesh, settings, solver = _mixed_poisson(tf, tpoisson)
+    # The sharded solve takes steady Picard only: with device_mesh, marches,
+    # Newton, VMS and refinement raise naming ROADMAP item 10.
+    u = tpoisson.mixed_poisson().u
+    sharded = tf.SolverSettings(device_mesh=object())
+    model = tflow.navier_stokes(10.0)
     bad_calls = [
-        dict(checkpoint_settings=object()),
-        dict(solver_settings=tf.SolverSettings(device_mesh=object())),
+        dict(solver_settings=sharded, time_settings=tf.TimeSettings(0.1, 2, {u.weight: u})),
+        dict(solver_settings=tf.SolverSettings(device_mesh=object(), method="newton")),
+        dict(
+            solver_settings=sharded,
+            vms_settings=tf.VMSSettings(model.system, model.system, 1, tf.ConvergenceSettings()),
+        ),
+        dict(
+            solver_settings=sharded,
+            refinement_settings=tf.RefinementSettings(
+                tf.ErrorEstimateLocalInverse(u, 1), tf.RefinementLimitElementCount(0.1, 4)
+            ),
+        ),
     ]
     for kw in bad_calls:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(NotImplementedError, match="ROADMAP .* item 10"):
             tf.solve_system_2d(mesh, settings, device="cpu", **kw)
+
+    # Checkpoints are ported: a steady solve with checkpoint_settings solves
+    # and writes its file.
+    path = str(tmp_path / "steady.npz")
+    grids, stats, _ = tf.solve_system_2d(
+        mesh, settings, solver, checkpoint_settings=tf.CheckpointSettings(path), device="cpu"
+    )
+    assert len(grids) == 2
+    from mfv2d_torch.checkpoint import load_steady_state
+
+    assert load_steady_state(path)["iteration"] == int(stats.iter_history[0])
     with pytest.raises(ValueError, match="Unknown iterative method"):
         tf.solve_system_2d(
             mesh, settings, tf.SolverSettings(linear_solver="no-such-solver"), device="cpu"
