@@ -13,9 +13,9 @@ Run from the repository root:  python3 chip_smoke.py [--probe [inverse|mass|hp|v
   --probe vms     phases 0, 1 and 15 only: VMS on the card, BASELINE
                   config 5 among it, with both kernels held and timed at
                   every shape the phase launched them on
-  --probe parallel  phases 0, 1 and 16 only: the element-sharded steady
-                  solve over torch.distributed, with the earlier phases
-                  it compares with run again for their grids
+  --probe parallel  phases 0, 1, 16 and 17 only: the element-sharded
+                  solver over torch.distributed, with the earlier phases
+                  it compares with run again for their results
 
 Phases (each ends in torch.cuda.synchronize(); any failure exits non-zero):
 
@@ -112,6 +112,28 @@ Phases (each ends in torch.cuda.synchronize(); any failure exits non-zero):
    last of which resumes a world-size-1 run.  Every rank
    returns the same answer and counts one all_reduce per trace matvec;
    both kernels are then held and timed at 16b's per-rank shapes
+17. the rest of the element-sharded solver, spawned as phase 16: (a)
+   phase 11's Navier-Stokes by Newton at 2 ranks (trace GMRES), its
+   corrections equal to phase 11's, its velocity within 1e-8 of phase
+   11's "direct" one, each rank inverting its n=121 blocks once a Newton
+   step; (b) BASELINE config 2's heat march (phase 12, 64x64 p=4, 16 steps)
+   by the linear sharded march at 1 rank (NCCL) and 2 ranks (gloo), every
+   sampled state within 1e-8 of phase 12's "direct" march and the error
+   at t_end within 1e-8 of its; (c) phase 12's cavity (16x16 p=4, Re=25,
+   GMRES) by the Picard march and the host Newton march at 2 ranks for
+   P17_CAVITY_NT steps, iterations a step and the state against the fused
+   dense marches of the same steps; (d) 16e's linear heat march at 2 ranks
+   cut at 32 steps and resumed to 64 (1e-12 from the uninterrupted 2-rank
+   march), the single-device cut file resumed at 2 ranks and the 2-rank
+   cut file on the single-device host loop (1e-10); (e) phase 14's first
+   hp round at 2 ranks, its orders, unknowns, refined mesh and estimates
+   as phase 14's, every rank's mesh alike; (f) VMS: 15a's setup at 2 ranks
+   against 15a, and config 5's orders (p=8, +2) on P17_VMS_MESH at 1 rank
+   against the single-device solve of the same setup.  Every rank returns
+   the same answer, its all_reduce calls add up (all tagged, one a
+   matvec, and where the solve fixes them the others too), and rank 0
+   holds both kernels against their plain versions and times them at
+   every shape the phase launched them on (not the estimator's)
 
 The line before the last is the kernel report (JSON), the last line the
 device summary (JSON).
@@ -1074,10 +1096,12 @@ def phase11_newton(picard_iterations: int) -> dict:
     for linear_solver, n, max_err in cases:
         gj_inverse.launches = 0
         mass_edge.launches = 0
-        iters, err, wall, stats, _ = _navier_stokes(
+        iters, err, wall, stats, grid = _navier_stokes(
             linear_solver, n=n, method="newton", max_err=max_err
         )
         key = linear_solver if n == 16 else f"{linear_solver} {n}x{n}"
+        if key == "direct":
+            REFERENCES["phase 11"] = (iters, grid)
         dense = ""
         if linear_solver == "dense":
             dense = f", dense saddle {stats.n_total_dofs}^2 f64 = {stats.n_total_dofs**2 * 8} bytes"
@@ -1140,7 +1164,7 @@ def _heat_march(n: int, p: int, linear_solver: str, nt: int = HEAT_NT):
     t_want = HEAT_T_END / HEAT_NT * nt
     if len(grids) != nt + 1 or not np.isclose(t_end, t_want) or times != sorted(times):
         raise RuntimeError(f"heat march grids: {len(grids)}, times {times}")
-    return stats, err, wall, mass_edge.launches, dict(tracer.stages)
+    return stats, err, wall, mass_edge.launches, dict(tracer.stages), grids
 
 
 # The JAX bench's heat cell (bench_solve.py, "heat implicit march 16x16
@@ -1161,6 +1185,28 @@ def _heat_steady_gradient(x, y):
     )
 
 
+def _linear_heat_problem(nt: int):
+    """(mesh, system settings, solver settings, time settings) of the
+    linear heat march to ``nt`` steps."""
+    import mfv2d_torch as mf
+
+    u = mf.KFormUnknown("u", mf.UnknownFormOrder.FORM_ORDER_2)
+    q = mf.KFormUnknown("q", mf.UnknownFormOrder.FORM_ORDER_1)
+    system = mf.KFormSystem(
+        q.weight.derivative @ u - q.weight @ q == 0,
+        u.weight @ q.derivative == 0,
+    )
+    return (
+        mf.examples.unit_square_mesh(16, 16, 4),
+        mf.SystemSettings(system, initial_conditions={u: _heat_steady, q: _heat_steady_gradient}),
+        mf.SolverSettings(mf.ConvergenceSettings(20, 1e-10, 0), linear_solver="dense"),
+        mf.TimeSettings(
+            dt=LINEAR_HEAT_DT, nt=nt, time_march_relations={u.weight: u},
+            sample_rate=LINEAR_HEAT_NT,
+        ),
+    )
+
+
 def _linear_heat_march(nt: int = LINEAR_HEAT_NT, checkpoint_settings=None):
     """The fused dense linear heat march (to ``nt`` steps); with
     ``checkpoint_settings`` the same march takes the host loop.  Returns
@@ -1169,25 +1215,14 @@ def _linear_heat_march(nt: int = LINEAR_HEAT_NT, checkpoint_settings=None):
     import mfv2d_torch as mf
     from mfv2d_torch.ops.kernels import mass_edge
 
-    u = mf.KFormUnknown("u", mf.UnknownFormOrder.FORM_ORDER_2)
-    q = mf.KFormUnknown("q", mf.UnknownFormOrder.FORM_ORDER_1)
-    system = mf.KFormSystem(
-        q.weight.derivative @ u - q.weight @ q == 0,
-        u.weight @ q.derivative == 0,
-    )
-    mesh = mf.examples.unit_square_mesh(16, 16, 4)
     mass_edge.launches = 0
     t0 = time.perf_counter()
+    mesh, settings, solver, time_settings = _linear_heat_problem(nt)
     grids, stats, _ = mf.solve_system_2d(
         mesh,
-        mf.SystemSettings(
-            system, initial_conditions={u: _heat_steady, q: _heat_steady_gradient}
-        ),
-        mf.SolverSettings(mf.ConvergenceSettings(20, 1e-10, 0), linear_solver="dense"),
-        time_settings=mf.TimeSettings(
-            dt=LINEAR_HEAT_DT, nt=nt, time_march_relations={u.weight: u},
-            sample_rate=LINEAR_HEAT_NT,
-        ),
+        settings,
+        solver,
+        time_settings=time_settings,
         recon_order=4,
         device="cuda",
         checkpoint_settings=checkpoint_settings,
@@ -1208,7 +1243,8 @@ def phase12_marches() -> dict:
     from mfv2d_torch.ops.kernels import mass_edge
 
     launches = {}
-    stats, err, wall, count, stages = _heat_march(64, 4, "direct")
+    stats, err, wall, count, stages, grids = _heat_march(64, 4, "direct")
+    REFERENCES["phase 12 heat"] = (grids, err)
     print(
         f"phase 12: heat march (BASELINE config 2) 64x64 p=4 direct: {stats.n_total_dofs}"
         f" unknowns, {HEAT_NT} steps of dt={HEAT_T_END / HEAT_NT}, iterations per"
@@ -1456,6 +1492,8 @@ def phase14_hp() -> dict:
                     f" {JAX_HP_ESTIMATES[i - 1]!r}"
                 )
             errors.append(err)
+            if i == 1:
+                REFERENCES["phase 14 round 1"] = (stats, mesh, digest)
         orchestrator.perform_mesh_refinement = perform
 
         for linear_solver in ("direct", "schur_direct"):
@@ -1604,9 +1642,10 @@ def _vms_systems(u_bc, source):
     return model, symmetric
 
 
-def _vms_solve(n: int, p: int, matrix_free: bool) -> dict:
+def _vms_solve(n: int, p: int, matrix_free: bool, keep_grid: bool = False):
     """bench_vms.py's solve on an n x n mesh at order p, +2 fine (BASELINE
-    config 5 at n=64, p=8), on the card, traced."""
+    config 5 at n=64, p=8), on the card, traced; with ``keep_grid`` also
+    its last grid."""
     import mfv2d_torch as mf
     from mfv2d_torch.tracing import tracer
 
@@ -1635,7 +1674,7 @@ def _vms_solve(n: int, p: int, matrix_free: bool) -> dict:
     wall = time.perf_counter() - t0
     tracer.disable()
     vms = grids[-1].point_data["vms-u"]
-    return {
+    run = {
         "iterations": int(stats.iter_history[0]),
         "u_error": _l2_point_error(grids[-1], "u", _vms_u),
         "vms_max": float(np.abs(vms).max()) if np.isfinite(vms).all() else float("nan"),
@@ -1644,11 +1683,16 @@ def _vms_solve(n: int, p: int, matrix_free: bool) -> dict:
         "stages": {k: v[1] for k, v in tracer.stages.items()},
         "peak_bytes": torch.cuda.max_memory_allocated(),
     }
+    return (run, grids[-1]) if keep_grid else run
 
 
 class _KernelRecorder:
     """While active, counts both kernels' launches by shape under the label
-    in ``part`` and keeps the first inputs of each shape."""
+    in ``part`` and keeps the first inputs of each shape; while ``part`` is
+    None it records nothing."""
+
+    # The recorders in use, the outermost first.
+    active: list["_KernelRecorder"] = []
 
     def __init__(self) -> None:
         self.mass_edge: dict[tuple, dict] = {}  # (p1, p2, nq, E)
@@ -1657,6 +1701,8 @@ class _KernelRecorder:
 
     def _recording(self, module, launch, table, key_of):
         def recording(*args):
+            if self.part is None:
+                return launch(*args)
             entry = table.setdefault(key_of(*args), {"inputs": args, "launches": {}})
             before = module.launches
             out = launch(*args)
@@ -1687,9 +1733,11 @@ class _KernelRecorder:
         gj_inverse.gj_inverse = inv
         iterative.gj_inverse = inv
         sharding.gj_inverse = inv
+        _KernelRecorder.active.append(self)
         return self
 
     def __exit__(self, *exc) -> None:
+        _KernelRecorder.active.remove(self)
         for module, name, fn in self._saved:
             setattr(module, name, fn)
 
@@ -1708,6 +1756,7 @@ def phase15_vms() -> dict:
             run = _vms_solve(8, 4, matrix_free)
             run["launches"] = {"mass_edge": mass_edge.launches, "gj_inverse": gj_inverse.launches}
             runs[rec.part] = run
+            REFERENCES[f"phase 15a {name}"] = run
             iters, err, vms = JAX_VMS_SMALL[name]
             print(
                 f"phase 15a: VMS nonlinear flow 8x8 p=4 +2, {name}: {run['iterations']} Picard"
@@ -1951,9 +2000,12 @@ def _p16_job(mesh, problem: str, hp_mesh=None, max_iters=None, path=None, resume
     }
 
 
-def _p16_rank(rank, world, port, backend, jobs, queue):
-    """One rank of a phase-16 group: join it, run ``jobs`` in order, send
-    the results (or the traceback) to the parent."""
+def _p16_rank(rank, world, port, backend, jobs, queue, time_kernels=False):
+    """One rank of a phase-16 or -17 group: join it, run ``jobs`` in order
+    (each by the function its ``job`` names, ``_p16_job`` by default), send
+    the results (or the traceback) to the parent.  With ``time_kernels``
+    rank 0 then holds both kernels against their plain versions and times
+    them at every shape its jobs launched them on."""
     import traceback
     from datetime import timedelta
 
@@ -1977,15 +2029,23 @@ def _p16_rank(rank, world, port, backend, jobs, queue):
         dist.all_reduce = counted_all_reduce
         # Each job ends in a collective (the DoF gather), so every rank is
         # past its last one when it leaves the group.
-        results = {name: _p16_job(mesh, **kwargs) for name, kwargs in jobs}
+        results = {}
+        with _KernelRecorder() as rec:
+            for name, kwargs in jobs:
+                kwargs = dict(kwargs)
+                rec.part = name
+                results[name] = globals()[kwargs.pop("job", "_p16_job")](mesh, **kwargs)
+            rec.part = None
         dist.destroy_process_group()
+        if time_kernels and rank == 0:
+            results["kernels"] = _p17_time_recorded(rec)
         queue.put((rank, results))
     except BaseException:
         queue.put((rank, traceback.format_exc()))
         raise
 
 
-def _p16_spawn(world: int, backend: str, jobs) -> list[dict]:
+def _p16_spawn(world: int, backend: str, jobs, time_kernels: bool = False) -> list[dict]:
     """Run ``jobs`` on ``world`` spawned ranks; fail if a rank fails or hangs."""
     import queue as queue_module
     import socket
@@ -1998,7 +2058,7 @@ def _p16_spawn(world: int, backend: str, jobs) -> list[dict]:
     ctx = mp.get_context("spawn")
     queue = ctx.Queue()
     procs = [
-        ctx.Process(target=_p16_rank, args=(r, world, port, backend, jobs, queue))
+        ctx.Process(target=_p16_rank, args=(r, world, port, backend, jobs, queue, time_kernels))
         for r in range(world)
     ]
     for proc in procs:
@@ -2337,6 +2397,621 @@ def _p16_report(parallel: dict) -> dict:
             "checkpoints": parallel["checkpoints"], "kernels": _p16_kernel_entries(parallel)}
 
 
+# Phase 17: the rest of the element-sharded solver (Newton, the three
+# marches and their checkpoints, refinement, VMS) over torch.distributed.
+# The ranks are spawned as in phase 16 and build their problems by name.
+# 17c: steps of each sharded cavity march, and the Picard march's cap of
+# iterations a step (its 14 to convergence take over 60 s at 2 ranks on
+# one card, 2.4 ms a GMRES iteration); the fused references take the same.
+P17_CAVITY_NT, P17_CAVITY_PICARD_CAP = 1, 8
+# 17f: config 5's orders at 1 rank on this mesh, the largest of 16x16,
+# 32x32 and 64x64 under the time the phase allows (16x16 took 2.9 s).
+P17_VMS_MESH = 32
+P17_TOL = 1e-8
+
+
+def _p17_problem(name: str, nt: int | None = None):
+    """(mesh, system settings, solver settings without device_mesh, extra
+    solve_system_2d arguments, recon order, field, exact or None) of a
+    phase-17 problem, built by name."""
+    import mfv2d_torch as mf
+    from mfv2d_torch.models import flow, transport
+
+    def lid(x, y):
+        on = np.isclose(y, 1.0)
+        return np.stack((np.where(on, 1.0, 0.0), np.zeros_like(y)), axis=-1)
+
+    if name == "ns newton":  # phase 11's Navier-Stokes by Newton
+        model = flow.navier_stokes(10.0)
+        mesh = mf.examples.unit_square_mesh(16, 16, 5)
+        bc = mf.BoundaryCondition2DSteady(model.velocity, mesh.boundary_indices,
+                                          flow.ns_velocity_exact)
+        return (mesh, mf.SystemSettings(model.system, [bc], [(0.0, model.pressure)]),
+                mf.SolverSettings(mf.ConvergenceSettings(80, 1e-8, 0.0), linear_solver="gmres",
+                                  method="newton"),
+                {}, 10, "vel", flow.ns_velocity_exact)
+    if name == "heat":  # BASELINE config 2, phase 12's march
+        model = transport.heat_mixed(HEAT_ALPHA, HEAT_BETA, _heat_steady)
+        return (mf.examples.unit_square_mesh(64, 64, 4), mf.SystemSettings(model.system),
+                mf.SolverSettings(mf.ConvergenceSettings(20, 1e-10, 0)),
+                {"time_settings": mf.TimeSettings(
+                    dt=HEAT_T_END / HEAT_NT, nt=HEAT_NT,
+                    time_march_relations=model.time_march_relations)},
+                4, "u", None)
+    if name in ("cavity picard", "cavity newton"):  # phase 12's cavity
+        model = flow.cavity_flow(25.0, lid)
+        mesh = mf.examples.unit_square_mesh(16, 16, 4)
+        bc = mf.BoundaryCondition2DSteady(model.velocity, mesh.boundary_indices, lid)
+        newton = name == "cavity newton"
+        return (mesh, mf.SystemSettings(model.system, [bc], [(0.0, model.pressure)]),
+                mf.SolverSettings(mf.ConvergenceSettings(30 if newton else P17_CAVITY_PICARD_CAP,
+                                                         1e-8, 0),
+                                  relaxation=1.0 if newton else 0.8, linear_solver="gmres",
+                                  method="newton" if newton else "picard"),
+                {"time_settings": mf.TimeSettings(
+                    dt=0.25, nt=P17_CAVITY_NT, time_march_relations=model.time_march_relations)},
+                4, "vel", None)
+    if name == "linear heat":  # phase 16e's checkpointed march
+        mesh, settings, solver, time_settings = _linear_heat_problem(nt)
+        return mesh, settings, solver, {"time_settings": time_settings}, 4, "u", None
+    if name == "hp round":  # phase 14's first round
+        model = transport.linear_advection_diffusion(HP_NU, _hp_wind, _hp_u, _hp_source)
+        return (mf.examples.unit_square_mesh(32, 32, 4), mf.SystemSettings(model.system),
+                mf.SolverSettings(mf.ConvergenceSettings(100, 1e-10, 0), linear_solver="gmres"),
+                {"refinement_settings": mf.RefinementSettings(
+                    mf.ErrorEstimateLocalInverse(model.u, 1),
+                    mf.RefinementLimitElementCount(0.1, 128),
+                    h_refinement_ratio=HP_H_RATIO, upper_order_limit=8)},
+                4, "u", _hp_u)
+    # "vms N p": _vms_solve's setup (phase 15) on an N x N mesh at order p.
+    _, n, p = name.split()
+    model, symmetric = _vms_systems(_vms_u, _vms_source)
+    return (mf.examples.unit_square_mesh(int(n), int(n), int(p)),
+            mf.SystemSettings(model.system, over_integration_order=3),
+            mf.SolverSettings(mf.ConvergenceSettings(40, 1e-9, 0), linear_solver="schur_direct",
+                              anderson_m=3),
+            {"vms_settings": mf.VMSSettings(
+                symmetric_system=symmetric, nonsymmetric_system=model.system, order_increase=2,
+                fine_scale_convergence=mf.ConvergenceSettings(10, 1e-10, 1e-8),
+                matrix_free=True)},
+            8, "u", _vms_u)
+
+
+def _p17_job(mesh, problem: str, nt=None, path=None, every=None, resume=None) -> dict:
+    """One sharded solve of phase 17 on this rank, with what it launched
+    and reduced; the estimator of a refining solve is not recorded (it
+    runs on every element on each rank, at the shapes phase 14 timed)."""
+    import hashlib
+    from dataclasses import replace
+
+    import mfv2d_torch as mf
+    from mfv2d_torch.checkpoint import mesh_to_arrays
+    from mfv2d_torch.ops.kernels import gj_inverse, mass_edge
+    from mfv2d_torch.parallel.sharding import TraceComm
+    from mfv2d_torch.tracing import tracer
+
+    orchestrator = importlib.import_module("mfv2d_torch.solve_system_2d")
+    comm = TraceComm(mesh)
+    fe_mesh, settings, solver, extra, recon, field, exact = _p17_problem(problem, nt)
+    solver = replace(solver, device_mesh=comm)
+    if path is not None:
+        extra["checkpoint_settings"] = mf.CheckpointSettings(path, every=every, resume_from=resume)
+    if resume is not None:
+        from mfv2d_torch.checkpoint import load_march_state
+
+        fe_mesh = load_march_state(resume)["mesh"]
+    outer = _KernelRecorder.active[0]
+    perform = orchestrator.perform_mesh_refinement
+
+    def unrecorded_refinement(*args, **kwargs):
+        part, outer.part = outer.part, None
+        try:
+            return perform(*args, **kwargs)
+        finally:
+            outer.part = part
+
+    raw_before = P16_RAW_REDUCES[0]
+    orchestrator.perform_mesh_refinement = unrecorded_refinement
+    try:
+        with _KernelRecorder() as rec:
+            rec.part = problem
+            mass_edge.launches = 0
+            gj_inverse.launches = 0
+            tracer.enable()
+            tracer.reset()
+            torch.cuda.reset_peak_memory_stats()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            grids, stats, out_mesh = mf.solve_system_2d(
+                fe_mesh, settings, solver, recon_order=recon, **extra
+            )
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            tracer.disable()
+            launches = {"mass_edge": mass_edge.launches, "gj_inverse": gj_inverse.launches}
+    finally:
+        orchestrator.perform_mesh_refinement = perform
+    fields = [dict(g.point_data) for g in grids]
+    digest = hashlib.sha256()
+    for f in fields:
+        for key in sorted(f):
+            digest.update(np.ascontiguousarray(f[key]).tobytes())
+    refine = "refinement_settings" in extra
+    return {
+        "device": str(comm.device),
+        "backend": comm.backend,
+        "digest": digest.hexdigest(),
+        # Rank 0 sends the grids; the others send their digest.
+        "fields": fields if comm.rank == 0 else None,
+        "times": [float(g.field_data["time"][0]) for g in grids],
+        "error": None if exact is None else _l2_point_error(grids[-1], field, exact),
+        "iterations": stats.iter_history.tolist(),
+        "residuals": stats.residual_history.tolist(),
+        "unknowns": int(stats.n_total_dofs),
+        "multipliers": int(stats.n_lagrange),
+        "element_orders": dict(stats.element_orders),
+        "buckets": len(stats.element_orders),
+        "mesh": mesh_to_arrays(out_mesh) if refine else None,
+        "estimate": grids[-1].cell_data["error_estimate"] if refine else None,
+        "counts": dict(comm.counts),
+        "matvecs": comm.matvecs,
+        "krylov": list(comm.krylov),
+        "raw_reduces": P16_RAW_REDUCES[0] - raw_before,
+        "wall_s": wall,
+        "stages": {k: v[1] for k, v in tracer.stages.items()},
+        "peak_bytes": torch.cuda.max_memory_allocated(),
+        "launches": launches,
+        "m1_shapes": {k: sum(v["launches"].values()) for k, v in rec.mass_edge.items()},
+        "inverse_shapes": {k: sum(v["launches"].values()) for k, v in rec.gj_inverse.items()},
+    }
+
+
+def _p17_time_recorded(rec) -> dict:
+    """Both kernels held against their plain versions and timed at every
+    shape the rank's jobs launched them on, with the launches of each."""
+    from mfv2d_torch.ops.kernels import gj_inverse
+
+    mass_timing = []
+    for (p1, p2, nq, e), entry in sorted(rec.mass_edge.items()):
+        tb, jac = entry["inputs"]
+        timing = _time_mass_edge(
+            tb, jac, f"p=({p1},{p2}) nq={nq} E={e} on a rank",
+            f"phase {', '.join(entry['launches'])}", phase=17,
+            plain_max=KERNEL_MAX_BATCH_HIGH if max(p1, p2) > 8 else None,
+        )
+        timing["launches"] = sum(entry["launches"].values())
+        timing["launches_by_run"] = entry["launches"]
+        mass_timing.append(timing)
+    inverse_timing = []
+    for (n, e), entry in sorted(rec.gj_inverse.items()):
+        (a,) = entry["inputs"]
+        out, ref = gj_inverse.gj_inverse(a), torch.linalg.inv(a)
+        err = rel_err(out, ref)
+        if not err <= INVERSE_TOL[torch.float64]:
+            raise RuntimeError(f"17: the inverse kernel disagrees at n={n}, E={e}: {err:.3e}")
+        timing = _time_inverse(a, f"phase-17 blocks n={n} E={e} on a rank", phase=17)
+        timing["max_abs_err"] = float((out - ref).abs().max())
+        timing["launches"] = sum(entry["launches"].values())
+        timing["launches_by_run"] = entry["launches"]
+        timing["launches_in"] = f"phase {', '.join(entry['launches'])}"
+        inverse_timing.append(timing)
+        del out, ref
+    return {"mass_edge": mass_timing, "gj_inverse": inverse_timing}
+
+
+def _p17_references(work) -> None:
+    """Run again the earlier phases whose results phase 17 compares with,
+    and the single-device runs that only phase 17 needs."""
+    from dataclasses import replace
+
+    import mfv2d_torch as mf
+
+    if "phase 11" not in REFERENCES:
+        iters, _, _, _, grid = _navier_stokes("direct", method="newton")
+        REFERENCES["phase 11"] = (iters, grid)
+    if "phase 12 heat" not in REFERENCES:
+        _, err, _, _, _, grids = _heat_march(64, 4, "direct")
+        REFERENCES["phase 12 heat"] = (grids, err)
+    if "phase 12" not in REFERENCES:
+        REFERENCES["phase 12"] = _linear_heat_march()[4]
+    if "phase 14 round 1" not in REFERENCES:
+        grid, stats, mesh, _, _, _, _ = _hp_solve(mf.examples.unit_square_mesh(32, 32, 4),
+                                                  "direct", refine=True)
+        e, c = grid.cell_data["error_estimate"], grid.cell_data["h_ref_cost_estimate"]
+        REFERENCES["phase 14 round 1"] = (
+            stats, mesh, (float(e.sum()), float(e.max()), float(c.sum()), float(c.max()))
+        )
+    if "phase 15a matrix-free" not in REFERENCES:
+        REFERENCES["phase 15a matrix-free"] = _vms_solve(8, 4, True)
+    # The fused dense cavity marches over 17c's steps.
+    for method in ("picard", "newton"):
+        fe_mesh, settings, solver, extra, recon, _, _ = _p17_problem(f"cavity {method}")
+        grids, stats, _ = mf.solve_system_2d(
+            fe_mesh, settings, replace(solver, linear_solver="dense"), recon_order=recon,
+            device="cuda", **extra,
+        )
+        REFERENCES[f"17c fused {method}"] = (stats.iter_history.tolist(),
+                                             grids[-1].point_data["vel"])
+    # 17f: the single-device VMS solves of config 5's orders on 17f's meshes.
+    for mesh_n in (16, P17_VMS_MESH):
+        run, grid = _vms_solve(mesh_n, CONFIG5_ORDER, True, keep_grid=True)
+        REFERENCES[f"17f single {mesh_n}"] = (run, grid.point_data["u"], grid.point_data["vms-u"])
+    # 17d: the single-device host march to the cut, and uninterrupted.
+    half = LINEAR_HEAT_NT // 2
+    _linear_heat_march(half, mf.CheckpointSettings(str(work / "single-cut.npz"), every=half))
+    REFERENCES["17d single whole"] = _linear_heat_march(
+        LINEAR_HEAT_NT,
+        mf.CheckpointSettings(str(work / "single-whole.npz"), every=LINEAR_HEAT_NT),
+    )[4].point_data["u"]
+
+
+def _p17_expected_counts(r: dict, kind: str) -> dict:
+    """The all_reduce calls by tag, less the trace matvecs', that a rank of
+    a phase-17 solve must make.  A residual evaluation reduces the trace
+    value and the norm, a correction the Schur right-hand side; each bucket
+    reduces once at set-up and once more a Newton step (the inverses of its
+    Jacobians); a march reduces the scale of each nonlinear step's
+    tolerance and gathers its samples once, and the host march gathers
+    three times a checkpoint (``checkpoints``)."""
+    iters, buckets = r["iterations"], r["buckets"]
+    updates = len(r["krylov"])
+    if kind == "newton steady":
+        evals = iters[0]
+        return {"setup": buckets * updates, "residual": evals, "norm": evals,
+                "rhs": updates, "gather": 1}
+    if kind == "linear march":
+        nt = len(iters)
+        return {"setup": buckets, "residual": nt, "rhs": nt, "gather": 1}
+    if kind == "picard march":
+        # A step that stops at its cap of corrections (``cap``) evaluates
+        # no residual after its last one.
+        nt, corrections = len(iters), sum(iters)
+        evals = sum(i + (i < r.get("cap", float("inf"))) for i in iters)
+        return {"setup": buckets, "magnitude": nt, "residual": evals, "norm": evals,
+                "rhs": corrections, "gather": 1}
+    if kind == "picard steady":
+        evals = iters[0]
+        return {"setup": buckets, "residual": evals, "norm": evals, "rhs": updates,
+                "gather": 1}
+    # The host march: iterations count residual evaluations (none in the
+    # steps a resumed march skips); Newton rebuilds from a step's second
+    # correction on.
+    nt, evals = sum(1 for i in iters if i), sum(iters)
+    rebuilds = sum(max(0, i - 2) for i in iters) if kind == "newton march" else 0
+    return {"setup": buckets * (1 + rebuilds), "magnitude": nt, "residual": evals,
+            "norm": evals, "rhs": updates, "gather": 1 + 3 * r.get("checkpoints", 0)}
+
+
+def _p17_check_ranks(label: str, ranks: list[dict], kind: str | None) -> None:
+    """Every rank returns the same answer, and its all_reduce calls add up:
+    every one is tagged, the matvecs make one each and, where the solve's
+    shape fixes them (``kind``), the others are the ones it must make."""
+    for rank, r in enumerate(ranks):
+        if r["digest"] != ranks[0]["digest"]:
+            raise RuntimeError(f"{label}: rank {rank} returned another answer")
+        counts = r["counts"]
+        others = {tag: n for tag, n in counts.items() if tag != "schur"}
+        ok = (
+            r["raw_reduces"] == sum(counts.values())
+            and counts.get("schur", 0) == r["matvecs"]
+            and r["raw_reduces"] - sum(others.values()) == r["matvecs"]
+        )
+        if kind is not None:
+            want = {tag: n for tag, n in _p17_expected_counts(r, kind).items() if n}
+            ok = ok and others == want
+        if not ok:
+            raise RuntimeError(
+                f"{label}: rank {rank}: {counts} ({r['raw_reduces']} in all) for"
+                f" {r['matvecs']} matvecs, {r['iterations']} iterations,"
+                f" {len(r['krylov'])} updates" + ("" if kind is None else f"; want {want}")
+            )
+        if not (r["launches"]["mass_edge"] > 0 and r["launches"]["gj_inverse"] > 0):
+            raise RuntimeError(f"{label}: rank {rank} launched {r['launches']}")
+
+
+def _p17_print(label: str, ranks: list[dict]) -> None:
+    r0 = ranks[0]
+    krylov = [k for _, k in r0["krylov"]]
+    print(
+        f"phase {label}: {len(ranks)} rank(s), backend {r0['backend']}, devices"
+        f" {[r['device'] for r in ranks]}: {r0['unknowns']} unknowns ({r0['multipliers']}"
+        f" multipliers), iterations {r0['iterations']}, trace Krylov solves {len(krylov)}"
+        f" ({sum(krylov)} iterations, {r0['krylov'][0][0] if krylov else '-'}), error"
+        f" {r0['error']!r}, wall {r0['wall_s']:.3f} s, peak {r0['peak_bytes']} bytes a rank"
+    )
+    for rank, r in enumerate(ranks):
+        print(
+            f"  rank {rank}: all_reduce calls {r['counts']} ({r['raw_reduces']} in all),"
+            f" trace matvecs {r['matvecs']}, launches {r['launches']}, M1 by (p1, p2, nq, E)"
+            f" {r['m1_shapes']}, inverse by (n, E) {r['inverse_shapes']}"
+        )
+    for stage, total in sorted(r0["stages"].items(), key=lambda kv: -kv[1]):
+        print(f"  stage {stage:40s} {total:9.4f} s")
+
+
+def phase17_parallel() -> dict:
+    import shutil
+
+    import mfv2d_torch as mf
+    from mfv2d_torch.checkpoint import load_march_state
+
+    work = ROOT / "build" / "phase17"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    _p17_references(work)
+    two_cards = torch.cuda.device_count() >= 2
+    backend = "nccl" if two_cards else "gloo"
+    half = LINEAR_HEAT_NT // 2
+    cut, resumed = str(work / "cut.npz"), str(work / "resumed.npz")
+    single_cut = str(work / "single-cut.npz")
+    two = _p16_spawn(2, backend, [
+        ("17a", {"job": "_p17_job", "problem": "ns newton"}),
+        ("17b 2 ranks", {"job": "_p17_job", "problem": "heat"}),
+        ("17b linear", {"job": "_p17_job", "problem": "linear heat", "nt": LINEAR_HEAT_NT}),
+        ("17c picard", {"job": "_p17_job", "problem": "cavity picard"}),
+        ("17c newton", {"job": "_p17_job", "problem": "cavity newton"}),
+        ("17d cut", {"job": "_p17_job", "problem": "linear heat", "nt": half, "path": cut,
+                     "every": half}),
+        ("17d resumed", {"job": "_p17_job", "problem": "linear heat", "nt": LINEAR_HEAT_NT,
+                         "path": resumed, "every": LINEAR_HEAT_NT, "resume": cut}),
+        ("17d whole", {"job": "_p17_job", "problem": "linear heat", "nt": LINEAR_HEAT_NT,
+                       "path": str(work / "whole.npz"), "every": LINEAR_HEAT_NT}),
+        ("17d from single", {"job": "_p17_job", "problem": "linear heat",
+                             "nt": LINEAR_HEAT_NT, "path": str(work / "from-single.npz"),
+                             "every": LINEAR_HEAT_NT, "resume": single_cut}),
+        ("17e", {"job": "_p17_job", "problem": "hp round"}),
+        ("17f 8x8", {"job": "_p17_job", "problem": "vms 8 4"}),
+        ("17f config 5 orders 2 ranks", {"job": "_p17_job",
+                                         "problem": f"vms 16 {CONFIG5_ORDER}"}),
+    ], time_kernels=True)
+    one = _p16_spawn(1, "nccl", [
+        ("17b 1 rank", {"job": "_p17_job", "problem": "heat"}),
+        ("17f config 5 orders", {"job": "_p17_job",
+                                 "problem": f"vms {P17_VMS_MESH} {CONFIG5_ORDER}"}),
+    ], time_kernels=True)
+    by_job = {name: [r[name] for r in two] for name in two[0] if name != "kernels"}
+    by_job.update({name: [r[name] for r in one] for name in one[0] if name != "kernels"})
+    for name, ranks in by_job.items():
+        _p17_print(name, ranks)
+    gaps = {}
+
+    # 17a: Newton at 2 ranks against phase 11's "direct" Newton.
+    a = by_job["17a"][0]
+    iters11, grid11 = REFERENCES["phase 11"]
+    gaps["17a"] = _field_rel(a["fields"][-1]["vel"], grid11.point_data["vel"])
+    n121 = 121
+    e_rank = _p17_problem("ns newton")[0].leaf_count // 2
+    print(
+        f"  17a: {len(a['krylov'])} Newton corrections (phase 11: {iters11}; the JAX package:"
+        f" {JAX_NEWTON_ITERATIONS['direct']}), velocity against phase 11: {gaps['17a']:.3e}"
+    )
+    for rank, r in enumerate(by_job["17a"]):
+        if r["inverse_shapes"].get((n121, e_rank), 0) != len(r["krylov"]):
+            raise RuntimeError(f"17a: rank {rank} inverted {r['inverse_shapes']}, not once a"
+                               f" Newton step at n={n121}, E={e_rank}")
+    if len(a["krylov"]) != iters11 or not gaps["17a"] <= P17_TOL:
+        raise RuntimeError(f"17a: {len(a['krylov'])} corrections, {gaps['17a']:.3e}")
+    _p17_check_ranks("17a", by_job["17a"], "newton steady")
+
+    # 17b: config 2's march at 1 and 2 ranks against phase 12's.  Its
+    # reaction term sits on the right-hand side, so the JAX package's routing
+    # (by the compiled system) takes it to the Picard march, as the
+    # single-device path iterates each of its steps; the linear march runs
+    # 16e's heat march, against phase 12's fused dense march.
+    grids12, err12 = REFERENCES["phase 12 heat"]
+    for name in ("17b 1 rank", "17b 2 ranks"):
+        b = by_job[name][0]
+        gap = max(
+            max(float(np.abs(f[k] - g.point_data[k]).max()) for f, g in zip(b["fields"], grids12))
+            / max(float(np.abs(g.point_data[k]).max()) for g in grids12)
+            for k in ("u", "q")
+        )
+        t_end = b["times"][-1]
+        err = _l2_point_error_fields(b["fields"][-1], grids12[-1], t_end)
+        gaps[name] = gap
+        cg = [k for _, k in b["krylov"]]
+        print(
+            f"  {name}: {len(b['fields'])} grids (phase 12: {len(grids12)}), every state"
+            f" against phase 12's direct march {gap:.3e} (relative to the largest value),"
+            f" error at t={t_end} {err!r} (phase 12: {err12!r}), Picard iterations a step"
+            f" {b['iterations']}, {len(cg)} trace CG solves of {min(cg)}-{max(cg)}"
+            f" iterations ({sum(cg)} in all)"
+        )
+        if len(b["fields"]) != len(grids12) or not gap <= P17_TOL:
+            raise RuntimeError(f"{name}: {gap:.3e} from phase 12")
+        if not abs(err - err12) <= P17_TOL * err12:
+            raise RuntimeError(f"{name}: error {err!r}, phase 12 {err12!r}")
+        _p17_check_ranks(name, by_job[name], "picard march")
+    linear = by_job["17b linear"][0]
+    gaps["17b linear"] = _field_rel(linear["fields"][-1]["u"],
+                                    REFERENCES["phase 12"].point_data["u"])
+    print(
+        f"  17b linear: 16x16 p=4 heat march, {LINEAR_HEAT_NT} steps at 2 ranks, against"
+        f" phase 12's fused dense march {gaps['17b linear']:.3e}"
+    )
+    if not gaps["17b linear"] <= P17_TOL:
+        raise RuntimeError(f"17b linear: {gaps['17b linear']:.3e} from phase 12")
+    _p17_check_ranks("17b linear", by_job["17b linear"], "linear march")
+    e_half = _p17_problem("heat")[0].leaf_count // 2
+    for rank, r in enumerate(by_job["17b 2 ranks"]):
+        if not any(k[3] == e_half for k in r["m1_shapes"]) or r["inverse_shapes"].get(
+            (56, e_half), 0
+        ) <= 0:
+            raise RuntimeError(f"17b: rank {rank} did not launch both kernels at E={e_half}")
+
+    # 17c: the Picard and the Newton (host) marches against the fused dense.
+    for method in ("picard", "newton"):
+        c = by_job[f"17c {method}"][0]
+        fused_iters, fused_vel = REFERENCES[f"17c fused {method}"]
+        # The host march counts residual evaluations, one more than the
+        # corrections the Picard and the fused marches count.
+        want = [i + (method == "newton") for i in fused_iters]
+        gaps[f"17c {method}"] = _field_rel(c["fields"][-1]["vel"], fused_vel)
+        print(
+            f"  17c {method}: iterations a step {c['iterations']} (fused dense {fused_iters}),"
+            f" last residuals {c['residuals']}, velocity against the fused dense march"
+            f" {gaps[f'17c {method}']:.3e}"
+        )
+        if c["iterations"] != want or not gaps[f"17c {method}"] <= P17_TOL:
+            raise RuntimeError(f"17c {method}: {c['iterations']}, {gaps[f'17c {method}']:.3e}")
+    for r in by_job["17c picard"]:
+        r.update(cap=P17_CAVITY_PICARD_CAP)
+    _p17_check_ranks("17c picard", by_job["17c picard"], "picard march")
+    _p17_check_ranks("17c newton", by_job["17c newton"], "newton march")
+
+    # 17d: the checkpointed sharded march, and its files across the paths.
+    whole = by_job["17d whole"][0]["fields"][-1]["u"]
+    res = by_job["17d resumed"][0]
+    scale = float(np.abs(whole).max())
+    gaps["17d resumed"] = float(np.abs(res["fields"][-1]["u"] - whole).max()) / scale
+    gaps["17d from single"] = float(
+        np.abs(by_job["17d from single"][0]["fields"][-1]["u"] - whole).max()) / scale
+    _, _, _, _, to_single = _linear_heat_march(
+        LINEAR_HEAT_NT,
+        mf.CheckpointSettings(str(work / "to-single.npz"), every=LINEAR_HEAT_NT, resume_from=cut),
+    )
+    single_whole = REFERENCES["17d single whole"]
+    gaps["17d to single"] = _field_rel(to_single.point_data["u"], single_whole)
+    gaps["17d whole vs single"] = _field_rel(whole, single_whole)
+    cut_state = load_march_state(cut)
+    print(
+        f"  17d: cut at step {cut_state['time_index']} and resumed to {LINEAR_HEAT_NT}:"
+        f" {gaps['17d resumed']:.3e} from the uninterrupted 2-rank march; the single-device"
+        f" cut file resumed at 2 ranks {gaps['17d from single']:.3e}; the 2-rank cut file"
+        f" resumed on the single-device host loop {gaps['17d to single']:.3e} from its"
+        f" uninterrupted march (the 2-rank march {gaps['17d whole vs single']:.3e} from it)"
+    )
+    if not (
+        cut_state["time_index"] == half
+        and np.isclose(res["times"][0], half * LINEAR_HEAT_DT)
+        and gaps["17d resumed"] <= 1e-12
+        and max(gaps["17d from single"], gaps["17d to single"],
+                gaps["17d whole vs single"]) <= 1e-10
+    ):
+        raise RuntimeError(f"17d: {gaps}")
+    for name in ("17d cut", "17d resumed", "17d whole", "17d from single"):
+        for r in by_job[name]:
+            r.update(checkpoints=1)
+        _p17_check_ranks(name, by_job[name], "picard host march")
+
+    # 17e: phase 14's first round at 2 ranks.
+    e = by_job["17e"][0]
+    stats14, mesh14, digest14 = REFERENCES["phase 14 round 1"]
+    from mfv2d_torch.checkpoint import mesh_from_arrays
+
+    refined = mesh_from_arrays(e["mesh"])
+    orders = {}
+    for i in refined.get_leaf_indices():
+        o = tuple(int(v) for v in refined.get_leaf_orders(int(i)))
+        orders[o] = orders.get(o, 0) + 1
+    ref_orders = [tuple(mesh14.get_leaf_orders(int(i))) for i in mesh14.get_leaf_indices()]
+    mine = [tuple(refined.get_leaf_orders(int(i))) for i in refined.get_leaf_indices()]
+    est = e["estimate"]
+    digest = (float(est.sum()), float(est.max()))
+    print(
+        f"  17e: {e['element_orders']}, {e['unknowns']} unknowns (phase 14 round 1:"
+        f" {stats14.element_orders}, {stats14.n_total_dofs}), refined to {orders}"
+        f" ({refined.leaf_count} leaves; phase 14: {mesh14.leaf_count}; the JAX package"
+        f" {JAX_HP_ROUNDS[1][0]}), estimate (sum, max) {digest!r} (phase 14:"
+        f" {digest14[:2]!r}), every rank's mesh alike:"
+        f" {all(_same_mesh(r['mesh'], e['mesh']) for r in by_job['17e'])}"
+    )
+    if (
+        e["element_orders"] != stats14.element_orders
+        or e["unknowns"] != stats14.n_total_dofs
+        or orders != JAX_HP_ROUNDS[1][0]
+        or mine != ref_orders
+        or not all(_same_mesh(r["mesh"], e["mesh"]) for r in by_job["17e"])
+        or not all(abs(x - y) <= P17_TOL * abs(y) for x, y in zip(digest, digest14))
+    ):
+        raise RuntimeError("17e: the sharded round refines otherwise than phase 14")
+    _p17_check_ranks("17e", by_job["17e"], "picard steady")
+
+    # 17f: VMS at 2 ranks against 15a, and config 5's orders at 1 rank
+    # against the single-device solve of the same setup.
+    f8 = by_job["17f 8x8"][0]
+    run15 = REFERENCES["phase 15a matrix-free"]
+    vms8 = float(np.abs(f8["fields"][-1]["vms-u"]).max())
+    print(
+        f"  17f 8x8 p=4 +2, 2 ranks: {f8['iterations'][0]} residual evaluations (15a:"
+        f" {run15['iterations']} Picard iterations), u error {f8['error']!r} (15a:"
+        f" {run15['u_error']!r}), max |vms-u| {vms8!r} (15a: {run15['vms_max']!r})"
+    )
+    if (
+        abs(f8["iterations"][0] - (run15["iterations"] + 1)) > 1
+        or not abs(f8["error"] - run15["u_error"]) <= P17_TOL * run15["u_error"]
+        or not (np.isfinite(vms8) and vms8 > 0)
+    ):
+        raise RuntimeError("17f: the 2-rank VMS solve disagrees with 15a")
+    # The sharded branch's vms-u is the dual projection of the recovered
+    # fine scales, the single-device branch's that of the unresolved-scale
+    # forcing (in both packages), so the two maxima are printed, not held
+    # to each other; tests/test_torch_parallel_vms.py holds the sharded one
+    # to the JAX package's sharded solve.
+    for name, mesh_n in (("17f config 5 orders 2 ranks", 16),
+                         ("17f config 5 orders", P17_VMS_MESH)):
+        f5 = by_job[name][0]
+        run_s, u_s, vms_s = REFERENCES[f"17f single {mesh_n}"]
+        gaps[name] = _field_rel(f5["fields"][-1]["u"], u_s)
+        vms5 = float(np.abs(f5["fields"][-1]["vms-u"]).max())
+        print(
+            f"  {name}: {mesh_n}x{mesh_n} p=8 +2, {f5['iterations'][0]} residual evaluations"
+            f" (single device: {run_s['iterations']} Picard iterations), u against the"
+            f" single-device solve {gaps[name]:.3e}, u error {f5['error']!r} (single device"
+            f" {run_s['u_error']!r}), max |vms-u| {vms5!r} (single device, the unresolved"
+            f" forcing's: {float(np.abs(vms_s).max())!r}), wall {f5['wall_s']:.3f} s (single"
+            f" device {run_s['wall_s']:.3f} s)"
+        )
+        if (
+            abs(f5["iterations"][0] - (run_s["iterations"] + 1)) > 1
+            or not gaps[name] <= P17_TOL
+            or not np.isfinite(vms5)
+        ):
+            raise RuntimeError(f"{name}: the VMS solve disagrees with the single-device one")
+    for name in ("17f 8x8", "17f config 5 orders 2 ranks", "17f config 5 orders"):
+        _p17_check_ranks(name, by_job[name], None)
+
+    kernels = {key: two[0]["kernels"][key] + one[0]["kernels"][key]
+               for key in ("mass_edge", "gj_inverse")}
+    runs = {
+        job: {k: v for k, v in rs[0].items() if k not in ("fields", "mesh", "estimate", "digest")}
+        | {"m1_shapes": {str(k): v for k, v in rs[0]["m1_shapes"].items()},
+           "inverse_shapes": {str(k): v for k, v in rs[0]["inverse_shapes"].items()},
+           "element_orders": {str(k): v for k, v in rs[0]["element_orders"].items()}}
+        for job, rs in by_job.items()
+    }
+    return {"gaps": gaps, "runs": runs, **kernels}
+
+
+def _same_mesh(a: dict, b: dict) -> bool:
+    return a.keys() == b.keys() and all(np.array_equal(a[k], b[k]) for k in a)
+
+
+def _l2_point_error_fields(fields: dict, grid, t_end: float) -> float:
+    """Phase 12's error at ``t_end`` (config 2's exact solution) of the
+    point data ``fields``, reconstructed on ``grid``'s points."""
+    decay = 1 - np.exp(-HEAT_BETA * t_end)
+    x, y = grid.points[:, 0], grid.points[:, 1]
+    return float(np.sqrt(np.mean((fields["u"] - _heat_steady(x, y) * decay) ** 2)))
+
+
+def _p17_kernel_entries(parallel: dict) -> list[dict]:
+    """The kernel-line entries of phase 17: both kernels at every per-rank
+    shape its runs launched them on."""
+    entries = [
+        {"name": "mass_edge", "route": "cuda", "source": "mfv2d_torch/csrc/mass_edge.cu",
+         "replaces": "mfv2d_tpu/ops/pallas_mass.py:113", **timing}
+        for timing in parallel["mass_edge"]
+    ]
+    entries += [
+        {**timing, "name": "gj_inverse", "route": "cuda", "inverse_route": timing["route"],
+         "source": "mfv2d_torch/csrc/gj_inverse.cu",
+         "replaces": "mfv2d_tpu/ops/pallas_factor.py:136", "plain_ms": timing["library_ms"]}
+        for timing in parallel["gj_inverse"]
+    ]
+    return entries
+
+
 # Wall seconds of each phase after the build, printed before the reports.
 PHASE_WALLS: dict[str, float] = {}
 
@@ -2358,7 +3033,7 @@ def main() -> int:
         const="inverse",
         choices=("inverse", "mass", "hp", "vms", "parallel"),
         help="phases 0 and 1, then only phase 6 (inverse, the default), 2 (mass),"
-        " 14 (hp), 15 (vms) or 16 (parallel)",
+        " 14 (hp), 15 (vms) or 16 and 17 (parallel)",
     )
     args = parser.parse_args()
 
@@ -2371,7 +3046,12 @@ def main() -> int:
         print(json.dumps(phase15_vms()))
         return 0
     if args.probe == "parallel":
-        print(json.dumps(_p16_report(phase16_parallel())))
+        report = _p16_report(_timed("16", phase16_parallel))
+        parallel17 = _timed("17", phase17_parallel)
+        print(f"phase walls (s): {PHASE_WALLS}")
+        report["phase 17"] = {"runs": parallel17["runs"], "gaps": parallel17["gaps"]}
+        report["kernels"] += _p17_kernel_entries(parallel17)
+        print(json.dumps(report))
         return 0
     if args.probe == "inverse":
         print(json.dumps(phase6_inverse_vs_plain()))
@@ -2396,6 +3076,7 @@ def main() -> int:
     hp = _timed("14", phase14_hp)
     vms = _timed("15", phase15_vms)
     parallel = _timed("16", phase16_parallel)
+    parallel17 = _timed("17", phase17_parallel)
     print(f"phase walls (s): {PHASE_WALLS}")
     # One mass_edge entry per timed shape, each with the launches of the
     # main path its "launches_in" names: phases 4, 8, 10 and 13.  The
@@ -2488,6 +3169,9 @@ def main() -> int:
             # Phase 16: both kernels at the per-rank shapes of 16b (half of
             # the 64x64 p=8 mesh a rank), with rank 0's launches there.
             *_p16_kernel_entries(parallel),
+            # Phase 17: both kernels at every shape its runs launched them
+            # on, with rank 0's launches of each.
+            *_p17_kernel_entries(parallel17),
         ]
     }
     print(json.dumps(report))

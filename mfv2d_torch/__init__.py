@@ -7,9 +7,10 @@ the caller passes ``device="cpu"``, with the 1-form mass matrix and the
 element inverses computed by hand-written CUDA kernels on the GPU.  Steady
 Picard and Newton solves, the trapezoidal time marches, hp refinement and
 VMS fine-scale estimation (``VMSSettings``, ``ErrorEstimateVMS``) are
-ported, with checkpoints (``CheckpointSettings``) and the element-sharded
-steady Picard solve over ``torch.distributed`` (``SolverSettings.device_mesh``);
-see ROADMAP.md for what is still to come.
+ported, with checkpoints (``CheckpointSettings``), and each of them runs
+element-sharded over ``torch.distributed`` with ``SolverSettings.device_mesh``
+(``mfv2d_torch.parallel.sharding`` and ``mfv2d_torch.parallel.vms``, which,
+as the JAX package's ``parallel`` modules, are not re-exported here).
 """
 
 from mfv2d_torch import examples as examples

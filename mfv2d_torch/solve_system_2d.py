@@ -21,10 +21,10 @@ With ``vms_settings`` the Picard loop carries the VMS fine scales
 (solver/vms.py) and the output grids their ``vms-<form>`` point data.
 With ``checkpoint_settings`` marches and steady solves save their state and
 resume from it (checkpoint.py), on the host loops.  With
-``SolverSettings.device_mesh`` the steady Picard solve runs element-sharded
-over ``torch.distributed`` (parallel/sharding.py); the sharded marches,
-Newton, VMS and refinement are not ported yet and raise
-``NotImplementedError`` naming the ROADMAP item that will port them.
+``SolverSettings.device_mesh`` the solve runs element-sharded over
+``torch.distributed`` (parallel/sharding.py, parallel/vms.py), with every
+option the single-device path takes: Picard and Newton, the marches, VMS,
+checkpoints and refinement.
 """
 
 from __future__ import annotations
@@ -60,23 +60,7 @@ from mfv2d_torch.solver.solve import (
     reconstruct_mesh_from_solution,
 )
 from mfv2d_torch.system import KFormSystem
-from mfv2d_torch.unported import not_ported
 from mfv2d_torch.vis import ReconstructedGrid
-
-
-def _check_ported(
-    solver_settings: SolverSettings, time_settings, vms_settings, refinement_settings
-) -> None:
-    if solver_settings.device_mesh is None:
-        return
-    for given, what in (
-        (time_settings is not None, "time marches"),
-        (solver_settings.method == "newton", "Newton"),
-        (vms_settings is not None, "VMS"),
-        (refinement_settings is not None, "refinement"),
-    ):
-        if given:
-            raise not_ported(f"SolverSettings.device_mesh with {what} (multi-device)", "10")
 
 
 def _check_state_size(state: dict, n_dofs: int) -> dict:
@@ -203,7 +187,6 @@ def solve_system_2d(
     ``refinement_settings`` the refined mesh, whose last grid carries the
     ``error_estimate`` and ``h_ref_cost_estimate`` cell data.
     """
-    _check_ported(solver_settings, time_settings, vms_settings, refinement_settings)
     _check_vms_settings(system_settings, vms_settings)
     system = system_settings.system
     constrained_forms = system_settings.constrained_forms
@@ -260,10 +243,15 @@ def solve_system_2d(
             mesh,
             system_settings,
             solver_settings,
+            time_settings,
             basis_cache,
             recon_order,
-            boundary_conditions if boundary_conditions is not None else [],
-            checkpoint_settings,
+            boundary_conditions,
+            has_unsteady_bcs=has_unsteady_bcs,
+            has_td_rhs=has_td_rhs,
+            vms_settings=vms_settings,
+            refinement_settings=refinement_settings,
+            checkpoint_settings=checkpoint_settings,
         )
 
     # The evaluator host-evaluates callable fields at construction, so any
@@ -726,88 +714,240 @@ def solve_system_2d(
     return tuple(resulting_grids), stats, output_mesh
 
 
+def _fine_to_coarse_dual(disc, dk: int, fine_scales: np.ndarray) -> np.ndarray:
+    """The dual (P^T) projection of fine-scale VMS results to coarse DoFs on
+    the sharded path: one inclusion-matrix product a bucket (the
+    single-device ``fine_results_to_coarse_dofs(..., dual=True)``)."""
+    from mfv2d_torch.evaluation import reference_inclusion_matrix
+    from mfv2d_torch.parallel.vms import _fine_discretization
+
+    fd = _fine_discretization(disc, dk)
+    out = np.zeros(disc.n_dofs)
+    x = np.asarray(fine_scales)
+    for cb, fb in zip(disc.buckets, fd.buckets):
+        c = reference_inclusion_matrix(disc.form_spec, cb.orders, fb.orders, cb.batch.device)
+        out[cb.gather] = x[fb.gather] @ c
+    return out
+
+
 def _solve_sharded(
     mesh: Mesh,
     system_settings: SystemSettings,
     solver_settings: SolverSettings,
+    time_settings: TimeSettings | None,
     basis_cache: FemCache,
     recon_order: int | None,
     boundary_conditions,
-    checkpoint_settings,
+    *,
+    has_unsteady_bcs: bool = False,
+    has_td_rhs: bool = False,
+    vms_settings: VMSSettings | None = None,
+    refinement_settings=None,
+    checkpoint_settings=None,
 ) -> tuple[Sequence[ReconstructedGrid], SolutionStatistics, Mesh]:
-    """The steady Picard solve, element-sharded over ``device_mesh``.
+    """The element-sharded solve over ``solver_settings.device_mesh``.
 
     Every rank calls this with the same arguments and returns the same
-    grids and statistics (parallel/sharding.py).  As in the JAX package's
-    sharded branch, the one grid is the converged solution and the
-    iteration count is the number of residual evaluations, and
-    ``SolverSettings.anderson_m`` is not read.  Checkpoints use the single-device file format, so the two
-    paths' files interchange; rank 0 writes them and every rank reads them.
+    grids, statistics and mesh (parallel/sharding.py, parallel/vms.py).
+    Routes as the JAX package's sharded branch does: a steady solve to the
+    sharded Picard, Newton or VMS solve; a march to the host march when
+    VMS, Newton or a checkpoint needs per-step host work, else to the
+    linear or the nonlinear march.  Unsteady boundary values and
+    ``TimeDependent`` forcing enter the marches as per-step data.  A steady
+    solve's iteration count is its number of residual evaluations, and a
+    steady solve without VMS does not read ``SolverSettings.anderson_m``.
+    Checkpoints use the single-device file format, so the two paths' files
+    interchange; rank 0 writes them and every rank reads them.  With
+    ``refinement_settings`` every rank refines the mesh from the gathered
+    solution on its own device.
     """
-    from mfv2d_torch.parallel.sharding import sharded_steady_solve, trace_comm
+    from mfv2d_torch.parallel import sharding
     from mfv2d_torch.tracing import tracer
 
     system = system_settings.system
-    comm = trace_comm(solver_settings.device_mesh)
+    comm = sharding.trace_comm(solver_settings.device_mesh)
     conv = solver_settings.convergence
     t_solve = time.perf_counter()
     with tracer.stage("setup"):
         disc = discretize_mesh(mesh, system.unknown_forms, basis_cache, comm.device)
+    bcs = list(boundary_conditions or [])
+    # The marches also take the boundary conditions as the caller gave
+    # them, to freeze the unsteady ones at every level.
+    raw_bcs = list(system_settings.boundary_conditions or []) if has_unsteady_bcs else None
+    cforms = list(system_settings.constrained_forms)
+    common = dict(
+        boundary_conditions=bcs,
+        constrained_forms=cforms,
+        cg_maximum_iterations=max(200, 4 * disc.n_dofs),
+        cg_tolerance=conv.absolute_tolerance * 1e-3,
+    )
+    iterate = dict(
+        relax=solver_settings.relaxation,
+        absolute_tolerance=conv.absolute_tolerance,
+        relative_tolerance=conv.relative_tolerance,
+    )
+    krylov = "gmres" if solver_settings.linear_solver == "gmres" else "cg"
+    newton = solver_settings.method == "newton"
     initial_solution = None
     if system_settings.initial_conditions:
         _, initial_solution = compute_initial_solution(
             disc, system, system_settings.initial_conditions
         )
 
-    state, ckpt_cb = None, None
-    if checkpoint_settings is not None:
-        state, save = _steady_checkpointer(
-            checkpoint_settings, disc.n_dofs, writes=comm.rank == 0
+    grids: list[ReconstructedGrid] = []
+    if time_settings is None:
+        state, ckpt_cb = None, None
+        if checkpoint_settings is not None:
+            state, save = _steady_checkpointer(
+                checkpoint_settings, disc.n_dofs, writes=comm.rank == 0
+            )
+
+            def ckpt_cb(iterations, solution, lagrange, unresolved, final=False):
+                save(iterations, solution, lagrange, unresolved, final)
+                comm.barrier()
+
+        steady = dict(
+            common,
+            **iterate,
+            maximum_iterations=conv.maximum_iterations,
+            initial_solution=initial_solution if state is None else state["solution"],
+            initial_lagrange=None if state is None else state["lagrange"],
+            checkpoint_cb=ckpt_cb,
         )
+        fine_scales = vms_dual = None
+        if vms_settings is not None:
+            from mfv2d_torch.parallel.vms import sharded_vms_steady_solve
 
-        def ckpt_cb(iterations, solution, lagrange, unresolved, final=False):
-            save(iterations, solution, lagrange, unresolved, final)
-            comm.barrier()
+            u, lam, residuals, fine_scales = sharded_vms_steady_solve(
+                system, vms_settings, disc, comm, **steady,
+                anderson_m=solver_settings.anderson_m,
+                initial_unresolved=None if state is None else state["fine_scales"],
+                newton=newton,
+            )
+            vms_dual = _fine_to_coarse_dual(disc, vms_settings.order_increase, fine_scales)
+        else:
+            solve = sharding.sharded_newton_steady_solve if newton else sharding.sharded_steady_solve
+            u, lam, residuals = solve(system, disc, comm, **steady, krylov_method=krylov)
+        if ckpt_cb is not None:
+            # The final iterate, whatever ``every`` is; the JAX package's
+            # sharded branch counts its residual evaluations here.  For VMS
+            # the recovered fine scales stand in for the loop's unresolved
+            # contributions: on resume they only start the inner solve.
+            ckpt_cb(len(residuals), u, lam, fine_scales, final=True)
+        grid = reconstruct_mesh_from_solution(disc, recon_order, u, vms_dual)
+        grid.field_data["time"] = np.array([0.0])
+        grids.append(grid)
+        iters = np.array((len(residuals),), np.uint32)
+        changes = np.asarray(residuals)
+    else:
+        from mfv2d_torch.checkpoint import load_march_state
 
-    solution, lagrange, residuals = sharded_steady_solve(
-        system,
-        disc,
-        comm,
-        boundary_conditions=boundary_conditions,
-        constrained_forms=system_settings.constrained_forms,
-        maximum_iterations=conv.maximum_iterations,
-        relax=solver_settings.relaxation,
-        absolute_tolerance=conv.absolute_tolerance,
-        relative_tolerance=conv.relative_tolerance,
-        cg_maximum_iterations=max(200, 4 * disc.n_dofs),
-        cg_tolerance=conv.absolute_tolerance * 1e-3,
-        krylov_method="gmres" if solver_settings.linear_solver == "gmres" else "cg",
-        initial_solution=initial_solution if state is None else state["solution"],
-        initial_lagrange=None if state is None else state["lagrange"],
-        checkpoint_cb=ckpt_cb,
-    )
-    if ckpt_cb is not None:
-        # The final iterate, whatever ``every`` is; the JAX package's sharded
-        # branch counts its residual evaluations here.
-        ckpt_cb(len(residuals), solution, lagrange, None, final=True)
-    grid = reconstruct_mesh_from_solution(disc, recon_order, solution)
-    grid.field_data["time"] = np.array([0.0])
+        resume_state = None
+        if (
+            checkpoint_settings is not None
+            and checkpoint_settings.resume_from
+            and os.path.exists(checkpoint_settings.resume_from)
+        ):
+            resume_state = _check_state_size(
+                load_march_state(checkpoint_settings.resume_from), disc.n_dofs
+            )
+        start_index = 0 if resume_state is None else resume_state["time_index"]
+        if resume_state is not None:
+            u0 = resume_state["solution"]
+        elif initial_solution is not None:
+            u0 = initial_solution
+        else:
+            u0 = np.zeros(disc.n_dofs)
+        grid0 = reconstruct_mesh_from_solution(disc, recon_order, u0)
+        grid0.field_data["time"] = np.array([start_index * time_settings.dt])
+        grids.append(grid0)
+        march = dict(common, unsteady_bcs=raw_bcs, has_td_rhs=has_td_rhs,
+                     initial_solution=initial_solution, krylov_method=krylov)
+        march_fine = None
+        marched = CompiledSystem(update_system_for_time_march(time_settings, system))
+        if vms_settings is not None or newton or checkpoint_settings is not None:
+            # Newton, the VMS unresolved-scale solves and the checkpoint
+            # writes need a step loop that does host work every step.
+            us, sample_steps, lam, iters, changes, march_fine = (
+                sharding.sharded_host_time_march(
+                    system, disc, comm, time_settings, **march, **iterate,
+                    max_iterations=conv.maximum_iterations, newton=newton,
+                    vms_settings=vms_settings, anderson_m=solver_settings.anderson_m,
+                    checkpoint_settings=checkpoint_settings, resume_state=resume_state,
+                )
+            )
+        elif marched.nonlin_blocks is None and marched.rhs_blocks is None:
+            us, sample_steps, lam = sharding.sharded_time_march(
+                system, disc, comm, time_settings, **march
+            )
+            iters = np.ones(time_settings.nt, np.uint32)
+            changes = np.zeros(time_settings.nt)
+        else:
+            us, sample_steps, lam, iters, changes = sharding.sharded_nonlinear_time_march(
+                system, disc, comm, time_settings, **march, **iterate,
+                max_iterations=conv.maximum_iterations,
+            )
+        for s_i, step in enumerate(sample_steps):
+            # As in the JAX package, the recovered fine scales belong to the
+            # final state of a VMS march alone.
+            g_vms = (
+                _fine_to_coarse_dual(disc, vms_settings.order_increase, march_fine)
+                if march_fine is not None and s_i == len(sample_steps) - 1
+                else None
+            )
+            grid = reconstruct_mesh_from_solution(disc, recon_order, us[s_i], g_vms)
+            grid.field_data["time"] = np.array([(int(step) + 1) * time_settings.dt])
+            grids.append(grid)
+        u = np.asarray(us[-1]) if len(us) else u0
+        iters = np.asarray(iters, np.uint32)
+        changes = np.asarray(changes)
     tracer.add("solve+reconstruct", time.perf_counter() - t_solve)
 
     orders, counts = np.unique(disc.element_orders, axis=0, return_counts=True)
     stats = SolutionStatistics(
         element_orders={(int(o[0]), int(o[1])): int(c) for o, c in zip(orders, counts)},
-        n_total_dofs=disc.n_dofs + lagrange.size,
-        n_lagrange=int(lagrange.size),
+        n_total_dofs=disc.n_dofs + lam.size,
+        n_lagrange=int(lam.size),
         n_elems=mesh.element_count,
         n_leaves=mesh.leaf_count,
         n_leaf_dofs=disc.n_dofs,
-        iter_history=np.array((len(residuals),), np.uint32),
-        residual_history=np.asarray(residuals),
+        iter_history=iters,
+        residual_history=changes,
     )
+
+    output_mesh = mesh
+    if refinement_settings is not None:
+        # The estimators are element-local work on the flat solution: every
+        # rank runs the single-device refinement on its own device, with the
+        # marched system for a march, as the single-device path does.
+        ref_system = (
+            update_system_for_time_march(time_settings, system)
+            if time_settings is not None
+            else system
+        )
+        evaluator = SystemEvaluator(ref_system.unknown_forms, CompiledSystem(ref_system), disc)
+        t_refine = time.perf_counter()
+        output_mesh, error_estimates, h_ref_cost = perform_mesh_refinement(
+            disc,
+            u,
+            ref_system,
+            evaluator,
+            refinement_settings.error_estimate,
+            refinement_settings.h_refinement_ratio,
+            refinement_settings.refinement_limit,
+            refinement_settings.report_error_distribution,
+            bcs,
+            refinement_settings.upper_order_limit,
+            refinement_settings.lower_order_limit,
+            system_settings.constrained_forms,
+            anisotropic_p=refinement_settings.anisotropic_p,
+        )
+        tracer.add("refinement", time.perf_counter() - t_refine)
+        grids[-1].cell_data["error_estimate"] = error_estimates
+        grids[-1].cell_data["h_ref_cost_estimate"] = h_ref_cost
     if tracer.enabled:
         print(tracer.report())
-    return (grid,), stats, mesh
+    return tuple(grids), stats, output_mesh
 
 
 def update_system_for_time_march(

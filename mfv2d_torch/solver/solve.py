@@ -187,6 +187,39 @@ def _to_device(values: np.ndarray, bucket: OrderBucket) -> torch.Tensor:
     return torch.as_tensor(values, dtype=torch.float64, device=bucket.batch.device)
 
 
+def warm_masses(batch, *block_sets) -> None:
+    """Compute every mass (or inverse) that ``block_sets`` read on ``batch``,
+    so a transformed residual only reads the memo and launches no kernel."""
+    for blocks in block_sets:
+        for row in blocks or ():
+            for ops in row:
+                for op in ops or ():
+                    if isinstance(op, MassMat):
+                        batch.mass(op.order, op.inv)
+
+
+def forward_jacobians(residual, dofs: torch.Tensor) -> torch.Tensor:
+    """Exact per-element Jacobians ``[E, N, N]`` of an element-local
+    ``residual: [E, N] -> [E, N]`` at ``dofs``.
+
+    Residuals are element-local, so a forward-mode tangent that is ``e_j``
+    in every element gives column ``j`` of every element's Jacobian at once:
+    a vmap over the N one-hot tangents of one jvp of the whole batch's
+    residual.  The caller computes the masses first (:func:`warm_masses`),
+    outside the transform, so the kernels run on plain tensors and the
+    derivative only reads their output.
+    """
+    e, n = dofs.shape
+    chunk = max(1, min(n, _JACOBIAN_CHUNK_BYTES // (e * n * n * dofs.element_size())))
+
+    def column(tangent):
+        return torch.func.jvp(residual, (dofs,), (tangent.expand(e, n),))[1]
+
+    eye = torch.eye(n, dtype=dofs.dtype, device=dofs.device)
+    columns = torch.func.vmap(column, chunk_size=chunk)(eye)  # [j, E, i]
+    return columns.permute(1, 2, 0)
+
+
 class SystemEvaluator:
     """Per-bucket evaluation of element matrices and residuals.
 
@@ -264,40 +297,13 @@ class SystemEvaluator:
             out[bucket.gather] = self.bucket_residual(i, dofs).cpu().numpy()
         return out
 
-    def _warm_masses(self, i_bucket: int) -> None:
-        """Compute every mass (or inverse) the residual's blocks read, so a
-        transformed residual only reads the memo and launches no kernel."""
-        batch = self.disc.buckets[i_bucket].batch
-        for blocks in (self.compiled.lhs_blocks, self.compiled.rhs_blocks):
-            for row in blocks or ():
-                for ops in row:
-                    for op in ops or ():
-                        if isinstance(op, MassMat):
-                            batch.mass(op.order, op.inv)
-
     def bucket_jacobians(self, i_bucket: int, dofs: torch.Tensor) -> torch.Tensor:
         """Exact per-element Jacobians ``d(LHS - RHS)/du`` of one bucket,
-        ``[E, N, N]`` on its device.
-
-        Residuals are element-local, so a forward-mode tangent that is
-        ``e_j`` in every element gives column ``j`` of every element's
-        Jacobian at once: a vmap over the N one-hot tangents of one jvp of
-        the whole bucket's residual.  The masses are computed first, outside
-        the transform, so the kernels run on plain tensors and the
-        derivative only reads their output.
-        """
-        self._warm_masses(i_bucket)
-        e, n = dofs.shape
-        chunk = max(1, min(n, _JACOBIAN_CHUNK_BYTES // (e * n * n * dofs.element_size())))
-
-        def column(tangent):
-            return torch.func.jvp(
-                lambda d: self.bucket_residual(i_bucket, d), (dofs,), (tangent.expand(e, n),)
-            )[1]
-
-        eye = torch.eye(n, dtype=dofs.dtype, device=dofs.device)
-        columns = torch.func.vmap(column, chunk_size=chunk)(eye)  # [j, E, i]
-        return columns.permute(1, 2, 0)
+        ``[E, N, N]`` on its device (:func:`forward_jacobians`)."""
+        warm_masses(
+            self.disc.buckets[i_bucket].batch, self.compiled.lhs_blocks, self.compiled.rhs_blocks
+        )
+        return forward_jacobians(lambda d: self.bucket_residual(i_bucket, d), dofs)
 
     def element_jacobians(self, solution: np.ndarray) -> list[np.ndarray]:
         """Exact per-element Jacobians d(LHS - RHS)/du per bucket (Newton).

@@ -46,7 +46,7 @@ def test_import_leaves_no_jax_modules():
         "mfv2d_torch.ops.kernels.mass_edge, mfv2d_torch.ops.kernels.gj_inverse, "
         "mfv2d_torch.solver.iterative, mfv2d_torch.solver.fused, "
         "mfv2d_torch.models.transport, mfv2d_torch.interop, mfv2d_torch.checkpoint, "
-        "mfv2d_torch.solver.krylov, mfv2d_torch.parallel.sharding\n"
+        "mfv2d_torch.solver.krylov, mfv2d_torch.parallel.sharding, mfv2d_torch.parallel.vms\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"

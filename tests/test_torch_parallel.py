@@ -307,8 +307,9 @@ CASES = {
 }
 
 
-def _rank_main(rank, world, port, names, tmp, queue):
-    """One rank: join the gloo group, run the named cases, send the results."""
+def _rank_main(rank, world, port, cases, tmp, queue):
+    """One rank: join the gloo group, run ``cases`` (name -> function) in
+    order, send the results."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
 
@@ -320,10 +321,10 @@ def _rank_main(rank, world, port, names, tmp, queue):
         )
         mesh = init_device_mesh("cpu", (world,))
         results = {}
-        for name in names:
+        for name, case in cases.items():
             case_tmp = os.path.join(tmp, f"{name}-{world}")
             os.makedirs(case_tmp, exist_ok=True)
-            results[name] = CASES[name](mesh, case_tmp)
+            results[name] = case(mesh, case_tmp)
         queue.put((rank, results))
         dist.destroy_process_group()
     except BaseException as exc:  # reported to the parent, which fails the test
@@ -339,15 +340,19 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def run_ranks(world: int, names, tmp) -> list[dict]:
-    """Run the named cases on ``world`` spawned gloo ranks; results by rank."""
+def run_ranks(world: int, names, tmp, table=None) -> list[dict]:
+    """Run the named cases of ``table`` (name -> module-level function of
+    ``(mesh, tmp)``; this module's ``CASES`` by default) on ``world``
+    spawned gloo ranks; results by rank."""
     import torch.multiprocessing as mp
 
+    table = CASES if table is None else table
+    cases = {name: table[name] for name in names}
     ctx = mp.get_context("spawn")
     queue = ctx.Queue()
     port = _free_port()
     procs = [
-        ctx.Process(target=_rank_main, args=(r, world, port, list(names), str(tmp), queue))
+        ctx.Process(target=_rank_main, args=(r, world, port, cases, str(tmp), queue))
         for r in range(world)
     ]
     for p in procs:

@@ -231,28 +231,57 @@ def test_stokes_flow_matches_jax(p, linear_solver, monkeypatch):
 
 def test_unported_options_raise(tmp_path):
     mesh, settings, solver = _mixed_poisson(tf, tpoisson)
-    # The sharded solve takes steady Picard only: with device_mesh, marches,
-    # Newton, VMS and refinement raise naming ROADMAP item 10.
+    # With device_mesh every option is ported; what still raises are the
+    # reference's own guards: a TimeDependent operator field in a sharded
+    # march, and TimeDependent operator fields with VMS.
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from mfv2d_torch.models import transport
+
     u = tpoisson.mixed_poisson().u
-    sharded = tf.SolverSettings(device_mesh=object())
-    model = tflow.navier_stokes(10.0)
-    bad_calls = [
-        dict(solver_settings=sharded, time_settings=tf.TimeSettings(0.1, 2, {u.weight: u})),
-        dict(solver_settings=tf.SolverSettings(device_mesh=object(), method="newton")),
-        dict(
-            solver_settings=sharded,
-            vms_settings=tf.VMSSettings(model.system, model.system, 1, tf.ConvergenceSettings()),
-        ),
-        dict(
-            solver_settings=sharded,
-            refinement_settings=tf.RefinementSettings(
-                tf.ErrorEstimateLocalInverse(u, 1), tf.RefinementLimitElementCount(0.1, 4)
-            ),
-        ),
-    ]
-    for kw in bad_calls:
-        with pytest.raises(NotImplementedError, match="ROADMAP .* item 10"):
-            tf.solve_system_2d(mesh, settings, device="cpu", **kw)
+    wind = tf.TimeDependent(lambda x, y, t: np.stack((x + t, y), axis=-1))
+    advection = transport.linear_advection_diffusion(
+        0.1, wind, lambda x, y: 0.0 * x, lambda x, y: 0.0 * x
+    )
+    march = tf.TimeSettings(0.1, 2, {advection.u.weight: advection.u})
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        one_rank = init_device_mesh("cpu", (1,))
+        with pytest.raises(NotImplementedError, match="sharded marches"):
+            tf.solve_system_2d(
+                tf.examples.unit_square_mesh(2, 2, 2), tf.SystemSettings(advection.system),
+                tf.SolverSettings(device_mesh=one_rank), time_settings=march, device="cpu",
+            )
+        # A sharded march and a sharded Newton solve, which raised before.
+        grids, stats, _ = tf.solve_system_2d(
+            mesh, settings, tf.SolverSettings(solver.convergence, device_mesh=one_rank),
+            time_settings=tf.TimeSettings(0.1, 2, {u.weight: u}), device="cpu",
+        )
+        assert len(grids) == 3 and stats.iter_history.shape == (2,)
+        grids, stats, _ = tf.solve_system_2d(
+            mesh, settings,
+            tf.SolverSettings(solver.convergence, method="newton", device_mesh=one_rank),
+            device="cpu",
+        )
+        assert len(grids) == 1 and int(stats.iter_history[0]) >= 1
+    finally:
+        dist.destroy_process_group()
+    sym = tf.KFormSystem(
+        advection.q.weight.derivative @ advection.u - advection.q.weight @ advection.q
+        == 0 * (advection.q.weight @ advection.q),
+        0.1 * (advection.u.weight @ advection.q.derivative)
+        == 0 * (advection.u.weight @ advection.u),
+    )
+    with pytest.raises(NotImplementedError, match="vms_settings"):
+        tf.solve_system_2d(
+            tf.examples.unit_square_mesh(2, 2, 2),
+            tf.SystemSettings(advection.system, over_integration_order=2),
+            time_settings=march,
+            vms_settings=tf.VMSSettings(sym, advection.system, 2,
+                                        tf.ConvergenceSettings(5, 1e-8, 1e-6)),
+            device="cpu",
+        )
 
     # Checkpoints are ported: a steady solve with checkpoint_settings solves
     # and writes its file.
