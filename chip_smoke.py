@@ -27,10 +27,14 @@ Phases (each ends in torch.cuda.synchronize(); any failure exits non-zero):
 2. M1 kernel vs its plain PyTorch version on the card, f64 and f32, at
    orders on both sides of the 176 KB at which the basis table stops being
    resident in shared memory and is streamed (to p=16, and anisotropic),
-   and their median times beside the bound and one einsum over the stacked
-   table and the metric (the library call) at p=4 and p=8 (E=4096),
-   p=10 (E=1024) and p=16 (E=16) in f64: a call alone, and per call of
-   ten back to back
+   the panel route (batches too small to fill the card) at p=10, 12 and
+   16 with E=1, 4, 16 and 64, and their median times beside the bound and
+   one einsum over the stacked table and the metric (the library call) at
+   p=4 and p=8 (E=4096), p=10 (E=1024, phase 10's E=256 and 16, and the
+   VMS inclusion's E=1) and p=16 (E=1, 4, 16, 64) in f64: a call alone,
+   and per call of ten back to back, each with its route and panel.  Every
+   timed shape that a path launches (here and in phases 14 to 17) must be
+   no slower than the einsum
 3. the golden 4x4 p=3 mixed-Poisson solution on the card, through the
    direct, static-condensation, dense and Schur CG solvers
 4. the main path at size: steady mixed Poisson, 64x64 mesh, p=4
@@ -68,9 +72,11 @@ Phases (each ends in torch.cuda.synchronize(); any failure exits non-zero):
    dense linear march of the JAX bench's heat cell (16x16, p=4, 64 steps);
    and the lid-driven cavity on 16x16, p=4 by the fused dense Picard march
    and the fused dense Newton march, with iterations per step
-13. the inverse's clustered panel on a model: steady Navier-Stokes Re=10,
-   4x4 mesh, p=16, linear_solver="schur_direct" (element blocks n=1089),
-   its Picard iterations against the JAX package's
+13. the inverse's clustered panel and M1's panel route on a model:
+   steady Navier-Stokes Re=10, 4x4 mesh, p=16, linear_solver="schur_direct"
+   (element blocks n=1089, M1 at E=16), its Picard iterations against the
+   JAX package's; then its first assembly once more, warm, under
+   torch.profiler: host time, copies and device kernels by name
 14. hp refinement: the gallery's advection-diffusion system on 32x32, p=4,
    three rounds of the local-inverse estimator ("direct"), each round's
    orders, unknowns, u error and error-estimate sums against the JAX
@@ -142,8 +148,10 @@ device summary (JSON).
 from __future__ import annotations
 
 import argparse
+import cProfile
 import json
 import importlib
+import pstats
 import re
 import shutil
 import subprocess
@@ -165,17 +173,34 @@ KERNEL_ORDERS = [
     (9, 3),
 ]
 KERNEL_SIZES = [1, 16, 256, 1000, 4096]
+# Batches of the panel route, checked at p=10, 12 and 16.
+PANEL_ORDERS = [(10, 10), (12, 12), (16, 16)]
+PANEL_SIZES = [1, 4, 16, 64]
 # Above p=8 the plain version's intermediates grow like p^4 per element.
 KERNEL_MAX_BATCH_HIGH = 300
-# Timed M1 shapes (orders, E), f64, and the main path whose launches the
-# report puts beside each: the shape of phase 4, the shape of phase 8,
-# phase 10's order at a batch that fills the card, and the shape of phase 13.
+# Timed M1 shapes (orders, E), f64, and the path that launches each, whose
+# launches the report puts beside it: the shapes of phases 4, 8, 10 and 13
+# and of the VMS inclusion's reference element (phases 15b and 17f, which
+# count its launches at its shape); None for shapes no path launches:
+# phase 10's order at a batch that fills the card, p=16 at other batches.
 KERNEL_TIMED = [
-    ((4, 4), 4096, "phase 4 (p=4, E=4096)"),
-    ((8, 8), 4096, "phase 8 (p=8, E=4096)"),
-    ((10, 10), 1024, "phase 10 (p=10, E=256 and E=16)"),
-    ((16, 16), 16, "phase 13 (p=16, E=16)"),
+    ((4, 4), 4096, "phase 4"),
+    ((8, 8), 4096, "phase 8"),
+    ((10, 10), 1024, None),
+    ((10, 10), 256, "phase 10 Poisson"),
+    ((10, 10), 16, "phase 10 Navier-Stokes"),
+    ((16, 16), 16, "phase 13"),
+    ((16, 16), 1, None),
+    ((16, 16), 4, None),
+    ((16, 16), 64, None),
+    ((10, 10), 1, "phases 15b and 17f"),
 ]
+# What a timed shape's "launches_in" says where no path launches it; its
+# "launches" is null.
+TIMED_ONLY = "none (timed only)"
+# The VMS inclusion's reference element, (p1, p2, nq, E): p=10 on 14 x 14
+# quadrature points.
+VMS_INCLUSION = [10, 10, 196, 1]
 KERNEL_TOL = {torch.float64: 1e-12, torch.float32: 1e-5}
 INVERSE_SIZES = [
     1, 16, 32, 33, 56, 64, 65, 121, 168, 170, 208, 289, 441, 460, 625, 1024, 1056, 1089, 2401
@@ -327,65 +352,102 @@ def phase2_kernel_vs_plain() -> list[dict]:
     from mfv2d_torch.ops import mass as plain
     from mfv2d_torch.ops.kernels import mass_edge
 
+    card = mass_edge.card(torch.device("cuda", 0))
+    print(f"  M1's launch plans take the card as {card}")
     for dtype, tol in KERNEL_TOL.items():
         # Phase 3 integrates with 2 extra points, every other path with 3.
         for orders, over in [((3, 3), 2), *((orders, 3) for orders in KERNEL_ORDERS)]:
             sizes = KERNEL_SIZES
             if max(orders) > 8:
                 sizes = sorted({min(e, KERNEL_MAX_BATCH_HIGH) for e in sizes})
+            if orders in PANEL_ORDERS:
+                sizes = sorted({*sizes, *PANEL_SIZES})
             if over != 3:
                 sizes = [16]
             for e in sizes:
                 tb, jac = _kernel_inputs(orders, e, dtype, seed=e + 7 * orders[0], over=over)
+                plan = mass_edge.launch_plan(
+                    tb.bh.shape[0], tb.bv.shape[0], tb.w.size, dtype, e, card
+                )
+                if orders in PANEL_ORDERS and e in PANEL_SIZES and plan.route != "panel":
+                    raise RuntimeError(f"p={orders} E={e} does not take the panel route")
                 out = mass_edge.mass_edge(tb, jac)
                 ref = plain.mass_edge(tb, jac)
                 torch.cuda.synchronize()
                 if out.shape != ref.shape or out.dtype != dtype:
                     raise RuntimeError(f"kernel output {out.shape} {out.dtype}")
                 err = rel_err(out, ref)
-                print(f"  {str(dtype):14s} p={orders} +{over} E={e:5d} rel err {err:.3e}")
+                print(
+                    f"  {str(dtype):14s} p={orders} +{over} E={e:5d} rel err {err:.3e}"
+                    f" ({_route(plan)})"
+                )
                 if not err <= tol:
                     raise RuntimeError(f"kernel disagrees: {err:.3e} > {tol:.0e}")
                 del out, ref
     timed = []
     for orders, e, path in KERNEL_TIMED:
         tb, jac = _kernel_inputs(orders, e, torch.float64, seed=1)
-        timed.append(_time_mass_edge(tb, jac, f"p={orders[0]} E={e}", path, phase=2))
+        timed.append(
+            _time_mass_edge(tb, jac, f"p={orders[0]} E={e}", path or TIMED_ONLY,
+                            phase=2, on_path=path is not None)
+        )
     return timed
 
 
-def _time_mass_edge(tb, jac, shape: str, path: str, phase: int, plain_max=None) -> dict:
-    """M1 through the wrapper on f64 inputs, held against its plain version,
-    with its median times beside the plain version, one einsum (the library
-    call) and the bound.  With ``plain_max`` the plain version, whose
-    intermediates grow like p^4 an element, runs on that many elements
-    only: the kernel and the einsum on all of them."""
-    from mfv2d_torch.ops import mass as plain
-    from mfv2d_torch.ops.kernels import mass_edge
+def _route(plan) -> str:
+    """A launch plan's route, in words."""
+    if plan.route == "panel":
+        rows, cols = plan.panel
+        return (
+            f"panel route, panels of {rows}x{cols} warp tiles of {plan.mr}x{plan.nc} blocks,"
+            f" {len(plan.tiles)} an element, stages of {plan.chunk} points"
+        )
+    table = "resident" if plan.stages == 1 else f"streamed in chunks of {plan.chunk}"
+    return f"element route, table {table}, {plan.group} elements a step"
 
-    e = jac.det.shape[0]
-    k = e if plain_max is None else min(e, plain_max)
-    jac_plain = type(jac)(*(t[:k] for t in jac))
-    plan = mass_edge.launch_plan(tb.bh.shape[0], tb.bv.shape[0], tb.w.size, torch.float64)
-    # Through the wrapper (plan, output allocation, launch): one call
-    # alone, with the host's part; ten calls back to back beside it.
-    ms = _median_ms(lambda: mass_edge.mass_edge(tb, jac))
-    back_to_back_ms = _median_ms(lambda: mass_edge.mass_edge(tb, jac), calls=10)
-    plain_ms = _median_ms(lambda: plain.mass_edge(tb, jac_plain), reps=10)
-    # The library call: one einsum over the stacked 1-form table
-    # phi[i, q, a] (bh in component 0, bv in component 1) and the
-    # [E, nq, 2, 2] metric, which it takes as given; the kernel forms
-    # the metric from the Jacobian terms itself.
+
+def m1_library_call(tb, jac):
+    """M1's library call: one einsum over the stacked 1-form table
+    phi[i, q, a] (bh in component 0, bv in component 1) and the
+    [E, nq, 2, 2] metric, which it takes as given (the kernel forms the
+    metric from the Jacobian terms itself)."""
+    from mfv2d_torch.ops import mass as plain
+
     k_hh, k_vv, k_hv = plain._edge_metric(jac, tb.w)
     metric = torch.stack([k_hh, k_hv, k_hv, k_vv], dim=-1).unflatten(-1, (2, 2))
     bh, bv = plain.as_like(tb.bh, k_hh), plain.as_like(tb.bv, k_hh)
     phi = bh.new_zeros((bh.shape[0] + bv.shape[0], bh.shape[1], 2))
     phi[: bh.shape[0], :, 0] = bh
     phi[bh.shape[0] :, :, 1] = bv
+    return lambda: torch.einsum("iqa,eqab,jqb->eij", phi, metric, phi)
 
-    def library_call():
-        return torch.einsum("iqa,eqab,jqb->eij", phi, metric, phi)
 
+def _time_mass_edge(
+    tb, jac, shape: str, path: str, phase: int, plain_max=None, on_path: bool = True
+) -> dict:
+    """M1 through the wrapper on f64 inputs, held against its plain version,
+    with its median times beside the plain version, one einsum (the library
+    call) and the bound.  With ``plain_max`` the plain version, whose
+    intermediates grow like p^4 an element, runs on that many elements
+    only: the kernel and the einsum on all of them.  A shape that a path
+    launches (``on_path``) fails the run where the kernel is slower than
+    the einsum."""
+    from mfv2d_torch.ops import mass as plain
+    from mfv2d_torch.ops.kernels import mass_edge
+
+    e = jac.det.shape[0]
+    k = e if plain_max is None else min(e, plain_max)
+    jac_plain = type(jac)(*(t[:k] for t in jac))
+    plan = mass_edge.launch_plan(
+        tb.bh.shape[0], tb.bv.shape[0], tb.w.size, torch.float64, e,
+        mass_edge.card(jac.det.device),
+    )
+    # Through the wrapper (plan, output allocation, launch): one call
+    # alone, with the host's part; ten calls back to back beside it.
+    ms = _median_ms(lambda: mass_edge.mass_edge(tb, jac))
+    back_to_back_ms = _median_ms(lambda: mass_edge.mass_edge(tb, jac), calls=10)
+    plain_ms = _median_ms(lambda: plain.mass_edge(tb, jac_plain), reps=10)
+    library_call = m1_library_call(tb, jac)
     library_ms = _median_ms(library_call, reps=10)
     out = mass_edge.mass_edge(tb, jac)
     ref = plain.mass_edge(tb, jac_plain)
@@ -402,18 +464,23 @@ def _time_mass_edge(tb, jac, shape: str, path: str, phase: int, plain_max=None) 
     # The least work: every output written and every Jacobian term read
     # once; by the symmetry of M1, n1 (n1 + 1) / 2 sums of nq products.
     bound_ms, bound_by = _bound(out_bytes, e * n1 * (n1 + 1) * nq)
-    table = "resident" if plan.stages == 1 else f"streamed in chunks of {plan.chunk}"
     print(
         f"phase {phase}: kernel agrees; M1 {shape} f64 median: kernel {ms:.4f} ms"
         f" ({back_to_back_ms:.4f} ms per call of ten back to back),"
         f" plain {plain_ms:.4f} ms" + (f" (first {k} elements)" if k < e else "")
         + f", library einsum {library_ms:.4f} ms,"
-        f" bound {bound_ms:.4f} ms ({bound_by});"
-        f" warp tile {plan.mr}x{plan.nc}, table {table}, {plan.group} elements"
-        f" a step, {plan.warps} warps, {plan.smem_bytes} bytes of shared memory"
+        f" bound {bound_ms:.4f} ms ({bound_by}); {_route(plan)}, warp tile"
+        f" {plan.mr}x{plan.nc}, {plan.warps} warps, {plan.smem_bytes} bytes of shared memory"
     )
+    if on_path and not ms <= library_ms:
+        raise RuntimeError(
+            f"M1 {shape}, launched in {path}: the kernel ({ms:.4f} ms) is slower than"
+            f" the einsum ({library_ms:.4f} ms)"
+        )
     return {
         "shape": shape,
+        "m1_route": plan.route,
+        **({"panel": list(plan.panel)} if plan.route == "panel" else {}),
         "launches_in": path,
         "max_abs_err": max_abs,
         "ms": ms,
@@ -912,9 +979,16 @@ def _device_profile(label: str, fn) -> None:
             us = ev.self_cuda_time_total
         rows.append((us, ev.count, ev.key))
     busy = sum(us for us, _, _ in rows) / 1e6
+    copies = {
+        way: sum(us for us, _, key in rows if "Memcpy" in key and way in key) / 1e6
+        for way in ("HtoD", "DtoH", "DtoD")
+    }
     print(
         f"  profile {label}: wall {wall:.3f} s, device busy {busy:.4f} s"
-        f" (idle {100 * (1 - busy / wall):.1f}%)"
+        f" (idle {100 * (1 - busy / wall):.1f}%; the host's share, wall less busy,"
+        f" {wall - busy:.4f} s): copies H2D {copies['HtoD']:.4f} s, D2H"
+        f" {copies['DtoH']:.4f} s, D2D {copies['DtoD']:.4f} s; kernels and the rest"
+        f" {busy - sum(copies.values()):.4f} s"
     )
     for us, count, key in sorted(rows, reverse=True)[:8]:
         print(f"    {us / 1e3:11.3f} ms {count:7d}  {key[:80]}")
@@ -954,17 +1028,26 @@ def phase9_picard_condensed(direct_iterations: int) -> None:
         raise RuntimeError("schur_direct Picard iterations differ from direct by > 1")
 
 
-def phase10_streamed_table() -> tuple[int, int]:
+def phase10_streamed_table() -> tuple[int, int, int]:
     from mfv2d_torch.ops.kernels import gj_inverse, mass_edge
 
-    plan = mass_edge.launch_plan(110, 110, 196, torch.float64)
+    card = mass_edge.card(torch.device("cuda", 0))
+    plans = {e: mass_edge.launch_plan(110, 110, 196, torch.float64, e, card) for e in (256, 16)}
     route = gj_inverse.route(320, torch.float64)
-    print(
-        f"  p=10 f64: M1 table in {plan.stages} ring stages of {plan.chunk} points,"
-        f" {plan.smem_bytes} bytes of shared memory; n=320 blocks take the {route} route"
-    )
-    if plan.stages == 1 or route != "streamed":
-        raise RuntimeError("phase 10 does not reach the streamed table and the streamed route")
+    for e, plan in plans.items():
+        print(
+            f"  p=10 f64, E={e}: M1 on the {_route(plan)}, {plan.smem_bytes} bytes of"
+            f" shared memory"
+        )
+    print(f"  n=320 blocks take the {route} route")
+    # The Poisson solve's E=256 streams the whole table on the element
+    # route; the Navier-Stokes solve's E=16 takes the panel route.
+    streamed = plans[256].route == "element" and plans[256].stages > 1
+    if not streamed or plans[16].route != "panel" or route != "streamed":
+        raise RuntimeError(
+            "phase 10 does not reach M1's streamed table and panel route and the inverse's"
+            " streamed route"
+        )
     gj_inverse.launches = 0
     mass_edge.launches = 0
     _mixed_poisson_at_size(16, 10, "schur_direct", phase=10)
@@ -985,7 +1068,7 @@ def phase10_streamed_table() -> tuple[int, int]:
         f" take the {route} route"
     )
     _require_launches(10, gj_inverse=gj_inverse.launches, mass_edge=mass_edge.launches)
-    return launches, gj_inverse.launches
+    return launches, mass_edge.launches, gj_inverse.launches
 
 
 # The JAX package's Picard iterations for phase 13's setup, taken on the CPU
@@ -1002,14 +1085,16 @@ def phase13_p16() -> tuple[int, int]:
     # Element blocks of n = 289 + 544 + 256 = 1089; M1 of 2 x 16 x 17 edges
     # on (16 + 4)^2 quadrature points.
     plan = gj_inverse.launch_plan(1089, torch.float64)
-    table = mass_edge.launch_plan(272, 272, 400, torch.float64)
+    m1 = mass_edge.launch_plan(
+        272, 272, 400, torch.float64, 16, mass_edge.card(torch.device("cuda", 0))
+    )
     print(
         f"  p=16 f64: n=1089 blocks take the {plan.route} route, {plan.panel} columns"
         f" a panel over a cluster of {plan.blocks} blocks ({plan.spill} rows spilled);"
-        f" M1 table in {table.stages} ring stages of {table.chunk} points"
+        f" M1 at E=16 on the {_route(m1)}"
     )
-    if plan.route != "streamed" or plan.blocks < 2 or table.stages == 1:
-        raise RuntimeError("phase 13 does not reach the clustered panel and the streamed table")
+    if plan.route != "streamed" or plan.blocks < 2 or m1.route != "panel":
+        raise RuntimeError("phase 13 does not reach the clustered panel and M1's panel route")
     gj_inverse.launches = 0
     mass_edge.launches = 0
     tracer.enable()
@@ -1028,7 +1113,51 @@ def phase13_p16() -> tuple[int, int]:
         raise RuntimeError(
             f"p=16 Picard took {iters} iterations, the JAX package {JAX_P16_PICARD_ITERATIONS}"
         )
-    return mass_edge.launches, gj_inverse.launches
+    launches = mass_edge.launches, gj_inverse.launches
+    _p13_first_assembly()
+    return launches
+
+
+def _p13_first_assembly() -> None:
+    """Phase 13's first assembly (the "assembly+constraints" stage: forcing,
+    element matrices, constraints) once more on a fresh discretization,
+    warm, under torch.profiler."""
+    import mfv2d_torch as mf
+    from mfv2d_torch.compiler import CompiledSystem
+    from mfv2d_torch.models import flow
+    from mfv2d_torch.ops.basis import FemCache
+    from mfv2d_torch.solver.discretization import discretize_mesh
+    from mfv2d_torch.solver.solve import SystemEvaluator, compute_linear_system
+
+    model = flow.navier_stokes(10.0)
+    mesh = mf.examples.unit_square_mesh(4, 4, 16)
+    bc = mf.BoundaryCondition2DSteady(
+        model.velocity, mesh.boundary_indices, flow.ns_velocity_exact
+    )
+    settings = mf.SystemSettings(model.system, [bc], [(0.0, model.pressure)])
+    system = settings.system
+
+    def fresh():
+        """The stage on a discretization of its own (the evaluator keeps
+        what it assembled)."""
+        disc = discretize_mesh(
+            mesh, system.unknown_forms, FemCache(settings.over_integration_order), "cuda"
+        )
+        evaluator = SystemEvaluator(system.unknown_forms, CompiledSystem(system), disc)
+        return lambda: compute_linear_system(
+            disc, system, evaluator, settings.constrained_forms,
+            settings.boundary_conditions, None,
+        )
+
+    _device_profile("phase 13, the first assembly again, warm", fresh())
+    # The host's share by Python function, from one more run.
+    profiler = cProfile.Profile()
+    profiler.runcall(fresh())
+    torch.cuda.synchronize()
+    rows = sorted(pstats.Stats(profiler).stats.items(), key=lambda kv: -kv[1][2])[:10]
+    print("  the same stage once more on the host, by function (own time, with callees):")
+    for (path, line, name), (_, calls, own, total, _) in rows:
+        print(f"    {own:8.4f} s {total:8.4f} s {calls:7d}  {name} ({Path(path).name}:{line})")
 
 
 # The JAX package's Newton iterations for phase 11's setups, taken on the CPU
@@ -1866,6 +1995,7 @@ def phase15_vms() -> dict:
             tb, jac, f"p=({p1},{p2}) nq={nq} E={e}", f"phase {', '.join(entry['launches'])}",
             phase=15, plain_max=KERNEL_MAX_BATCH_HIGH if max(p1, p2) > 8 else None,
         )
+        timing["m1_shape"] = [p1, p2, nq, e]
         timing["launches"] = sum(entry["launches"].values())
         timing["launches_by_run"] = entry["launches"]
         mass_timing.append(timing)
@@ -2579,6 +2709,7 @@ def _p17_time_recorded(rec) -> dict:
             f"phase {', '.join(entry['launches'])}", phase=17,
             plain_max=KERNEL_MAX_BATCH_HIGH if max(p1, p2) > 8 else None,
         )
+        timing["m1_shape"] = [p1, p2, nq, e]
         timing["launches"] = sum(entry["launches"].values())
         timing["launches_by_run"] = entry["launches"]
         mass_timing.append(timing)
@@ -3061,29 +3192,47 @@ def main() -> int:
         print(json.dumps(mass_timing))
         return 0
     _timed("3", phase3_golden)
-    mass_launches = [_timed("4", phase4_main_path)]
+    # M1's launches on each path that KERNEL_TIMED names.
+    mass_launches = {"phase 4": _timed("4", phase4_main_path)}
     direct_iterations = _timed("5", phase5_picard)
     inverse_timing = _timed("6", phase6_inverse_vs_plain)
     inverse_launches = _timed("7", phase7_schur_cg)
-    mass_launches.append(_timed("8", phase8_static_condensation))
+    mass_launches["phase 8"] = _timed("8", phase8_static_condensation)
     _timed("9", phase9_picard_condensed, direct_iterations)
-    phase10_mass_launches, phase10_inverse_launches = _timed("10", phase10_streamed_table)
-    mass_launches.append(phase10_mass_launches)
+    (
+        mass_launches["phase 10 Poisson"],
+        mass_launches["phase 10 Navier-Stokes"],
+        phase10_inverse_launches,
+    ) = _timed("10", phase10_streamed_table)
     newton_launches = _timed("11", phase11_newton, direct_iterations)
     march_launches = _timed("12", phase12_marches)
-    p16_mass_launches, p16_inverse_launches = _timed("13", phase13_p16)
-    mass_launches.append(p16_mass_launches)
+    mass_launches["phase 13"], p16_inverse_launches = _timed("13", phase13_p16)
     hp = _timed("14", phase14_hp)
     vms = _timed("15", phase15_vms)
     parallel = _timed("16", phase16_parallel)
     parallel17 = _timed("17", phase17_parallel)
     print(f"phase walls (s): {PHASE_WALLS}")
+    # The VMS inclusion's reference element: its launches run by run, as
+    # phases 15 and 17 counted them at its shape.
+    inclusion = {
+        run: n
+        for timing in (*vms["mass_edge"], *parallel17["mass_edge"])
+        if timing["m1_shape"] == VMS_INCLUSION
+        for run, n in timing["launches_by_run"].items()
+    }
+    if not sum(inclusion.values()):
+        raise RuntimeError(f"no run of phases 15 and 17 launched M1 at {VMS_INCLUSION}")
+    mass_launches["phases 15b and 17f"] = sum(inclusion.values())
+    mass_timing[KERNEL_TIMED.index(((10, 10), 1, "phases 15b and 17f"))][
+        "launches_by_run"
+    ] = inclusion
     # One mass_edge entry per timed shape, each with the launches of the
-    # main path its "launches_in" names: phases 4, 8, 10 and 13.  The
-    # inverse's launches are phase 7's (register route) and, for the
-    # streamed route, phase 10's Navier-Stokes solve and, for its clustered
-    # panel, phase 13's.  Phases 11 and 12 launch M1 at p=4 and p=5; their
-    # counts ride on the p=4 entry.
+    # path its "launches_in" names: phases 4, 8, 10 and 13, and the VMS
+    # inclusion's runs (null for the shapes timed only).  The inverse's
+    # launches are phase 7's (register route) and, for the streamed route,
+    # phase 10's Navier-Stokes solve and, for its clustered panel, phase
+    # 13's.  Phases 11 and 12 launch M1 at p=4 and p=5; their counts ride on
+    # the p=4 entry.
     mass_timing[0]["launches_phase11"] = {k: c["mass_edge"] for k, c in newton_launches.items()}
     mass_timing[0]["launches_phase12"] = march_launches
     report = {
@@ -3094,10 +3243,14 @@ def main() -> int:
                     "route": "cuda",
                     "source": "mfv2d_torch/csrc/mass_edge.cu",
                     "replaces": "mfv2d_tpu/ops/pallas_mass.py:113",
-                    "launches": launches,
+                    "launches": (
+                        None
+                        if timing["launches_in"] == TIMED_ONLY
+                        else mass_launches[timing["launches_in"]]
+                    ),
                     **timing,
                 }
-                for launches, timing in zip(mass_launches, mass_timing, strict=True)
+                for timing in mass_timing
             ),
             {
                 "name": "gj_inverse",

@@ -3,7 +3,7 @@
 
 Run from the repository root:
 
-    python3 tools/mass_edge_ablation.py [--baseline OTHER.cu]
+    python3 tools/mass_edge_ablation.py [--baseline OTHER.cu] [--sweep-only]
 
 Builds copies of ``mfv2d_torch/csrc/mass_edge.cu`` into
 ``build/mfv2d_torch/ablation/`` (one nvcc each, in parallel):
@@ -39,8 +39,16 @@ itself under other launch plans than the wrapper's: the other warp tile,
 other numbers of elements a step and of warps, and shorter chunks where the
 table is streamed.  Copies that store a result are held against the plain
 version to 1e-12.  Then the cycles of block 0's first warp by phase, from
-one launch of the ``ticks`` copy.  Last, for every order from 1 to 12 at
+one launch of the ``ticks`` copy.  Then, for every order from 1 to 12 at
 E=1024, the time under each warp tile beside the one the plan picks.
+
+Last (alone with ``--sweep-only``) the sweep of small batches behind the
+route switch of ``launch_plan`` and its choice of panel: at p=4 to 16
+(over-integration 3) and E=1, 2, 4, 8, 16, 32, 64, 128, 256 and 512, the
+element route and the panel route under panels of 4 x 4, 3 x 3, 2 x 2 and
+1 x 1 warp tiles, forced, each held against the plain version to 1e-12 and
+timed in turns, beside the einsum of the smoke's library call and the plan
+the wrapper picks; then, for each order, the batches where a panel wins.
 
 A copy whose text no longer matches the source stops the script with the
 substitution that failed.
@@ -61,6 +69,7 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
+from chip_smoke import m1_library_call  # noqa: E402
 from mfv2d_torch.ops import mass as plain  # noqa: E402
 from mfv2d_torch.ops.basis import FemCache  # noqa: E402
 from mfv2d_torch.ops.kernels import _build  # noqa: E402
@@ -71,7 +80,7 @@ BASE = np.array([(-1.0, -1.0), (1.0, -1.0), (1.0, 1.0), (-1.0, 1.0)])
 CASES = [((4, 4), 4096), ((8, 8), 4096), ((10, 10), 1024)]
 TOL = 1e-12
 
-NO_STORES = [("            if (r < q_rows) {", "            if (r < q_rows && n_elem < 0) {")]
+NO_STORES = [("      if (r < q.q_rows) {", "      if (r < q.q_rows && n1 < 0) {")]
 NO_MMA = [
     (
         "        if (mask >> (pi * NC + j) & 1u) mma_pair(acc[pi][j], a[pi][0], a[pi][1], b[j]);\n",
@@ -95,7 +104,10 @@ TICKS = [
         " last_tick = now_; } } while (0)\n"
         "namespace {\n\nconstexpr int kBlock = 8;",
     ),
-    ("  const int t = tid & 3;\n", "  const int t = tid & 3;\n  long long last_tick = clock64();\n"),
+    (
+        "  const bool resident = p.stages == 1;\n",
+        "  long long last_tick = clock64();\n  const bool resident = p.stages == 1;\n",
+    ),
     ("  __syncthreads();\n\n  int set = 0;", "  __syncthreads();\n  TICK(0);\n\n  int set = 0;"),
     (
         "metric_rows(set ^ 1, grp + gridDim.x);\n",
@@ -133,9 +145,10 @@ NO_LOADS = [
 ]
 NO_SCALE = [(F64_B, F64_B.replace(" * ks", ""))]
 ALL_QUADRANTS = [
-    ("      const bool diagonal = rows_v == cols_v;", "      const bool diagonal = false;"),
+    ("!(q.diagonal && cb0 + j < rb)", "true"),
+    ("      if (q.diagonal && cb0 + j < rb0 + i) continue;\n", ""),
     (
-        "const bool mirror = quad == kQuadHV || (diagonal && cb0 + j > rb0 + i);",
+        "const bool mirror = quad == kQuadHV || (q.diagonal && cb0 + j > rb0 + i);",
         "const bool mirror = false;",
     ),
 ]
@@ -270,10 +283,62 @@ def timed_in_turns(runs: dict) -> dict:
     return times
 
 
+SWEEP_ORDERS = range(4, 17)
+SWEEP_BATCHES = (1, 2, 4, 8, 16, 32, 64, 128, 256, 512)
+SWEEP_PANELS = ((4, 4), (3, 3), (2, 2), (1, 1))
+
+
+def sweep(lib) -> None:
+    """Both routes forced at small batches, beside the einsum and the plan
+    the wrapper picks."""
+    card = wrapper.card(torch.device("cuda", 0))
+    wins = {}
+    for p in SWEEP_ORDERS:
+        for e in SWEEP_BATCHES:
+            tb, jac = inputs((p, p), e)
+            n_h, n_v, nq = tb.bh.shape[0], tb.bv.shape[0], tb.w.size
+            element = wrapper.element_plan(n_h, n_v, nq, torch.float64)
+            plans = {"element": element}
+            for panel in SWEEP_PANELS:
+                plans[f"panel {panel[0]}x{panel[1]}"] = wrapper.panel_plan(
+                    n_h, n_v, nq, torch.float64, element.mr, element.nc, e, card, panel=panel
+                )
+            picked = wrapper.launch_plan(n_h, n_v, nq, torch.float64, e, card)
+            picked_name = next(name for name, plan in plans.items() if plan == picked)
+            ref = plain.mass_edge(tb, jac)
+            out = torch.empty_like(ref)
+            runs = {name: launcher(lib, tb, jac, out, plan) for name, plan in plans.items()}
+            for name, run in runs.items():
+                out.fill_(float("nan"))
+                run()
+                torch.cuda.synchronize()
+                err = float((out - ref).abs().max() / ref.abs().max())
+                if not err <= TOL:
+                    raise RuntimeError(f"p={p} E={e} {name}: {err:.3e}")
+            times = {name: min(t) for name, t in timed_in_turns(runs).items()}
+            einsum_ms = per_launch_ms(m1_library_call(tb, jac))
+            best = min(times, key=times.get)
+            line = " ".join(f"{name} {ms:.4f}" for name, ms in times.items())
+            print(
+                f"sweep p={p:2d} E={e:3d} (element route: {-(-e // element.group)} blocks,"
+                f" {len(element.tiles)} tiles an element): {line} ms; einsum"
+                f" {einsum_ms:.4f} ms; fastest {best}, the wrapper picks {picked_name}"
+                f" ({times[picked_name] / times[best]:.2f}x the fastest)"
+            )
+            if best != "element":
+                wins.setdefault(p, []).append(e)
+            del ref, out
+    for p in SWEEP_ORDERS:
+        print(f"sweep p={p:2d}: a panel route is fastest at E in {wins.get(p, [])}")
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument(
         "--baseline", type=Path, help="an earlier mass_edge.cu, timed beside the source"
+    )
+    parser.add_argument(
+        "--sweep-only", action="store_true", help="build the source and run the sweep only"
     )
     args = parser.parse_args()
     if not torch.cuda.is_available():
@@ -285,6 +350,9 @@ def main() -> int:
     )
     print(smi.stdout.strip() or torch.cuda.get_device_name(0))
     OUT.mkdir(parents=True, exist_ok=True)
+    if args.sweep_only:
+        sweep(build("kernel", None))
+        return 0
     names_built = [*COPIES, "baseline"] if args.baseline else list(COPIES)
     with ThreadPoolExecutor(len(names_built)) as pool:
         libs = dict(
@@ -294,7 +362,7 @@ def main() -> int:
     for orders, e in CASES:
         tb, jac = inputs(orders, e)
         n_h, n_v, nq = tb.bh.shape[0], tb.bv.shape[0], tb.w.size
-        plan = wrapper.launch_plan(n_h, n_v, nq, torch.float64)
+        plan = wrapper.element_plan(n_h, n_v, nq, torch.float64)
         ref = plain.mass_edge(tb, jac)
         out = torch.empty_like(ref)
         plain_ms = per_launch_ms(lambda: plain.mass_edge(tb, jac), inner=1)
@@ -375,7 +443,7 @@ def main() -> int:
     for p in range(1, 13):
         tb, jac = inputs((p, p), e)
         n_h, n_v, nq = tb.bh.shape[0], tb.bv.shape[0], tb.w.size
-        plan = wrapper.launch_plan(n_h, n_v, nq, torch.float64)
+        plan = wrapper.element_plan(n_h, n_v, nq, torch.float64)
         ref = plain.mass_edge(tb, type(jac)(*(t[:n_check].contiguous() for t in jac)))
         out = torch.empty((e, n_h + n_v, n_h + n_v), dtype=torch.float64, device="cuda")
         runs = {
@@ -396,6 +464,7 @@ def main() -> int:
             line += f" {name} {first:.4f} / {again:.4f} ms,"
         print(f"{line} the plan picks {plan.mr}x{plan.nc}")
         del ref, out
+    sweep(libs["kernel"])
     return 0
 
 
