@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (mfv2d_torch) on one CUDA GPU.
 
-Run from the repository root:  python3 chip_smoke.py [--probe [inverse|mass|hp|vms|parallel]]
+Run from the repository root:  python3 chip_smoke.py [--probe [inverse|mass|hp|vms|parallel|gallery]]
 
   --probe         phases 0, 1 and 6 only: build the kernels and hold the
                   batched inverse's routes against torch.linalg.inv, with
@@ -16,6 +16,8 @@ Run from the repository root:  python3 chip_smoke.py [--probe [inverse|mass|hp|v
   --probe parallel  phases 0, 1, 16 and 17 only: the element-sharded
                   solver over torch.distributed, with the earlier phases
                   it compares with run again for their results
+  --probe gallery  phases 0, 1, 18 and 18b only: the port's example
+                  gallery and BASELINE config 3 on the card
 
 Phases (each ends in torch.cuda.synchronize(); any failure exits non-zero):
 
@@ -140,6 +142,21 @@ Phases (each ends in torch.cuda.synchronize(); any failure exits non-zero):
    matvec, and where the solve fixes them the others too), and rank 0
    holds both kernels against their plain versions and times them at
    every shape the phase launched them on (not the estimator's)
+18. the port's example gallery: every script of examples_torch/ (19) on the
+   card at its own size, the single-card ones in this process, the
+   multi-device ones on one spawned rank a card through the gallery's own
+   spawn_ranks; each must finish, report the JAX gallery's titles with
+   values within 1e-10 of the JAX package's on the CPU (1e-8 through
+   Krylov solves; tools/gallery_reference.py), and launch the kernels its
+   path runs; launches counted at the wrappers per script, then M1 and the
+   inverse held against their plain versions and timed at every shape the
+   scripts launched them on (an M1 shape slower than the einsum fails; the
+   inverse is printed beside torch.linalg.inv)
+18b. BASELINE config 3: the Stokes flow in VVP form on 32x32 at p=8 by
+   "schur_direct" (n=289 blocks on the inverse's streamed route, M1 at p=8,
+   E=1024), unknowns, iterations and errors against the JAX package's, its
+   wall by tracer stage and peak device memory, both kernels held and timed
+   at its shapes
 
 The line before the last is the kernel report (JSON), the last line the
 device summary (JSON).
@@ -2022,7 +2039,6 @@ def phase15_vms() -> dict:
 # ranks are spawned processes; they build their models by name and size.
 P16_MESH, P16_ORDER = 64, 8  # 16a and 16b: phase 8's setup, BASELINE config 5's mesh and order
 P16_CUT = 6  # 16e: Picard iterations before the cut
-P16_TIMEOUT_S = 600  # a rank silent this long has hung; the process group times out too
 P16_TOL = 1e-8
 # The JAX package's Picard iterations for phase 5's setup (CPU).
 JAX_NS_PICARD_ITERATIONS = 17
@@ -2130,97 +2146,35 @@ def _p16_job(mesh, problem: str, hp_mesh=None, max_iters=None, path=None, resume
     }
 
 
-def _p16_rank(rank, world, port, backend, jobs, queue, time_kernels=False):
-    """One rank of a phase-16 or -17 group: join it, run ``jobs`` in order
-    (each by the function its ``job`` names, ``_p16_job`` by default), send
-    the results (or the traceback) to the parent.  With ``time_kernels``
-    rank 0 then holds both kernels against their plain versions and times
-    them at every shape its jobs launched them on."""
-    import traceback
-    from datetime import timedelta
-
+def _p16_rank(mesh, jobs, time_kernels=False) -> dict:
+    """A rank's job in a phase-16 or -17 group (spawned by
+    ``examples_torch.common.spawn_ranks``): run ``jobs`` in order (each by
+    the function its ``job`` names, ``_p16_job`` by default) with the raw
+    ``all_reduce`` calls counted and the kernel launches recorded.  With
+    ``time_kernels`` rank 0 then holds both kernels against their plain
+    versions and times them at every shape its jobs launched them on."""
     import torch.distributed as dist
-    from torch.distributed.device_mesh import init_device_mesh
 
     torch.set_num_threads(1)
-    try:
-        torch.cuda.set_device(rank % torch.cuda.device_count())
-        dist.init_process_group(
-            backend, init_method=f"tcp://localhost:{port}", world_size=world, rank=rank,
-            timeout=timedelta(seconds=P16_TIMEOUT_S),
-        )
-        mesh = init_device_mesh("cuda", (world,))
-        all_reduce = dist.all_reduce
+    all_reduce = dist.all_reduce
 
-        def counted_all_reduce(*args, **kwargs):
-            P16_RAW_REDUCES[0] += 1
-            return all_reduce(*args, **kwargs)
+    def counted_all_reduce(*args, **kwargs):
+        P16_RAW_REDUCES[0] += 1
+        return all_reduce(*args, **kwargs)
 
-        dist.all_reduce = counted_all_reduce
-        # Each job ends in a collective (the DoF gather), so every rank is
-        # past its last one when it leaves the group.
-        results = {}
-        with _KernelRecorder() as rec:
-            for name, kwargs in jobs:
-                kwargs = dict(kwargs)
-                rec.part = name
-                results[name] = globals()[kwargs.pop("job", "_p16_job")](mesh, **kwargs)
-            rec.part = None
-        dist.destroy_process_group()
-        if time_kernels and rank == 0:
-            results["kernels"] = _p17_time_recorded(rec)
-        queue.put((rank, results))
-    except BaseException:
-        queue.put((rank, traceback.format_exc()))
-        raise
-
-
-def _p16_spawn(world: int, backend: str, jobs, time_kernels: bool = False) -> list[dict]:
-    """Run ``jobs`` on ``world`` spawned ranks; fail if a rank fails or hangs."""
-    import queue as queue_module
-    import socket
-
-    import torch.multiprocessing as mp
-
-    with socket.socket() as sock:
-        sock.bind(("localhost", 0))
-        port = sock.getsockname()[1]
-    ctx = mp.get_context("spawn")
-    queue = ctx.Queue()
-    procs = [
-        ctx.Process(target=_p16_rank, args=(r, world, port, backend, jobs, queue, time_kernels))
-        for r in range(world)
-    ]
-    for proc in procs:
-        proc.start()
-    results: dict[int, dict] = {}
-    deadline = time.monotonic() + P16_TIMEOUT_S
-    try:
-        while len(results) < world:
-            try:
-                rank, out = queue.get(timeout=5)
-            except queue_module.Empty:
-                # A rank that died without a word (at start-up, say) fails
-                # the phase now rather than at the deadline.
-                dead = [p.exitcode for p in procs if p.exitcode not in (None, 0)]
-                if dead or time.monotonic() > deadline:
-                    raise RuntimeError(
-                        f"phase 16: {world} rank(s) hung or died: exit codes"
-                        f" {[p.exitcode for p in procs]}"
-                    ) from None
-                continue
-            if isinstance(out, str):
-                raise RuntimeError(f"phase 16: rank {rank} of {world} failed:\n{out}")
-            results[rank] = out
-    finally:
-        for proc in procs:
-            proc.join(timeout=60)
-            if proc.is_alive():
-                proc.kill()
-                proc.join()
-    if any(proc.exitcode != 0 for proc in procs):
-        raise RuntimeError(f"phase 16: rank exit codes {[p.exitcode for p in procs]}")
-    return [results[r] for r in range(world)]
+    dist.all_reduce = counted_all_reduce
+    # Each job ends in a collective (the DoF gather), so every rank is past
+    # its last one when it leaves the group.
+    results = {}
+    with _KernelRecorder() as rec:
+        for name, kwargs in jobs:
+            kwargs = dict(kwargs)
+            rec.part = name
+            results[name] = globals()[kwargs.pop("job", "_p16_job")](mesh, **kwargs)
+        rec.part = None
+    if time_kernels and dist.get_rank() == 0:
+        results["kernels"] = _p17_time_recorded(rec)
+    return results
 
 
 def _field_rel(mine, ref) -> float:
@@ -2296,6 +2250,8 @@ def _p16_check_ranks(label: str, ranks: list[dict]) -> None:
 def phase16_parallel() -> dict:
     import shutil
 
+    from examples_torch.common import spawn_ranks
+
     import mfv2d_torch as mf
 
     _p16_references()
@@ -2314,16 +2270,16 @@ def phase16_parallel() -> dict:
     # 16b, 16d and 16c on 2 ranks, 16c cut after P16_CUT iterations and
     # resumed from its file (the sharded part of 16e); then 16a and the
     # world-size-1 resume from the 2-rank file on 1 rank.
-    two = _p16_spawn(2, backend, [
+    two = spawn_ranks(_p16_rank, [
         ("16b", {"problem": "poisson"}),
         ("16d", {"problem": "hp", "hp_mesh": hp_mesh}),
         ("16c cut", {"problem": "ns", "max_iters": P16_CUT, "path": cut}),
         ("16c resumed", {"problem": "ns", "path": resumed, "resume": cut}),
-    ])
-    one = _p16_spawn(1, "nccl", [
+    ], world=2, backend=backend)
+    one = spawn_ranks(_p16_rank, [
         ("16a", {"problem": "poisson"}),
         ("16e world 1", {"problem": "ns", "path": str(work / "world1.npz"), "resume": resumed}),
-    ])
+    ], world=1)
     by_job = {name: [r[name] for r in two] for name in two[0]}
     by_job.update({name: [r[name] for r in one] for name in one[0]})
 
@@ -2696,17 +2652,18 @@ def _p17_job(mesh, problem: str, nt=None, path=None, every=None, resume=None) ->
     }
 
 
-def _p17_time_recorded(rec) -> dict:
+def _p17_time_recorded(rec, phase="17", where=" on a rank") -> dict:
     """Both kernels held against their plain versions and timed at every
-    shape the rank's jobs launched them on, with the launches of each."""
+    shape the recorder's runs launched them on, with the launches of each
+    run."""
     from mfv2d_torch.ops.kernels import gj_inverse
 
     mass_timing = []
     for (p1, p2, nq, e), entry in sorted(rec.mass_edge.items()):
         tb, jac = entry["inputs"]
         timing = _time_mass_edge(
-            tb, jac, f"p=({p1},{p2}) nq={nq} E={e} on a rank",
-            f"phase {', '.join(entry['launches'])}", phase=17,
+            tb, jac, f"p=({p1},{p2}) nq={nq} E={e}{where}",
+            f"phase {', '.join(entry['launches'])}", phase=phase,
             plain_max=KERNEL_MAX_BATCH_HIGH if max(p1, p2) > 8 else None,
         )
         timing["m1_shape"] = [p1, p2, nq, e]
@@ -2719,8 +2676,8 @@ def _p17_time_recorded(rec) -> dict:
         out, ref = gj_inverse.gj_inverse(a), torch.linalg.inv(a)
         err = rel_err(out, ref)
         if not err <= INVERSE_TOL[torch.float64]:
-            raise RuntimeError(f"17: the inverse kernel disagrees at n={n}, E={e}: {err:.3e}")
-        timing = _time_inverse(a, f"phase-17 blocks n={n} E={e} on a rank", phase=17)
+            raise RuntimeError(f"{phase}: the inverse kernel disagrees at n={n}, E={e}: {err:.3e}")
+        timing = _time_inverse(a, f"phase-{phase} blocks n={n} E={e}{where}", phase=phase)
         timing["max_abs_err"] = float((out - ref).abs().max())
         timing["launches"] = sum(entry["launches"].values())
         timing["launches_by_run"] = entry["launches"]
@@ -2863,6 +2820,8 @@ def _p17_print(label: str, ranks: list[dict]) -> None:
 def phase17_parallel() -> dict:
     import shutil
 
+    from examples_torch.common import spawn_ranks
+
     import mfv2d_torch as mf
     from mfv2d_torch.checkpoint import load_march_state
 
@@ -2875,7 +2834,7 @@ def phase17_parallel() -> dict:
     half = LINEAR_HEAT_NT // 2
     cut, resumed = str(work / "cut.npz"), str(work / "resumed.npz")
     single_cut = str(work / "single-cut.npz")
-    two = _p16_spawn(2, backend, [
+    two = spawn_ranks(_p16_rank, [
         ("17a", {"job": "_p17_job", "problem": "ns newton"}),
         ("17b 2 ranks", {"job": "_p17_job", "problem": "heat"}),
         ("17b linear", {"job": "_p17_job", "problem": "linear heat", "nt": LINEAR_HEAT_NT}),
@@ -2894,12 +2853,12 @@ def phase17_parallel() -> dict:
         ("17f 8x8", {"job": "_p17_job", "problem": "vms 8 4"}),
         ("17f config 5 orders 2 ranks", {"job": "_p17_job",
                                          "problem": f"vms 16 {CONFIG5_ORDER}"}),
-    ], time_kernels=True)
-    one = _p16_spawn(1, "nccl", [
+    ], True, world=2, backend=backend)
+    one = spawn_ranks(_p16_rank, [
         ("17b 1 rank", {"job": "_p17_job", "problem": "heat"}),
         ("17f config 5 orders", {"job": "_p17_job",
                                  "problem": f"vms {P17_VMS_MESH} {CONFIG5_ORDER}"}),
-    ], time_kernels=True)
+    ], True, world=1)
     by_job = {name: [r[name] for r in two] for name in two[0] if name != "kernels"}
     by_job.update({name: [r[name] for r in one] for name in one[0] if name != "kernels"})
     for name, ranks in by_job.items():
@@ -3127,8 +3086,8 @@ def _l2_point_error_fields(fields: dict, grid, t_end: float) -> float:
 
 
 def _p17_kernel_entries(parallel: dict) -> list[dict]:
-    """The kernel-line entries of phase 17: both kernels at every per-rank
-    shape its runs launched them on."""
+    """The kernel-line entries of phase 17 (and 18, 18b): both kernels at
+    every shape its runs launched them on."""
     entries = [
         {"name": "mass_edge", "route": "cuda", "source": "mfv2d_torch/csrc/mass_edge.cu",
          "replaces": "mfv2d_tpu/ops/pallas_mass.py:113", **timing}
@@ -3141,6 +3100,383 @@ def _p17_kernel_entries(parallel: dict) -> list[dict]:
         for timing in parallel["gj_inverse"]
     ]
     return entries
+
+
+# Phase 18: the port's example gallery (examples_torch/), every script at
+# its own size on the card.  The JAX gallery's report values on the CPU, at
+# full precision, printed by `JAX_PLATFORMS=cpu python3
+# tools/gallery_reference.py` (the card has no jax): by script, its report
+# titles and values in order.
+JAX_GALLERY = {
+    'parallel/multichip_poisson.py': [
+        ('multichip_poisson p=3 devices=1', {
+            'l2_u': 0.0011865683739414074, 'h1_q': 0.001503190235298439,
+        }),
+        ('multichip_poisson p=4 devices=1', {
+            'l2_u': 5.4590592818686986e-05, 'h1_q': 6.24413352304707e-05,
+        }),
+    ],
+    'parallel/multichip_vms.py': [
+        ('multichip_vms 4x4 p=4+2 devices=1', {
+            'l2_u': 0.00010051389238820752, 'picard_iters': 20.0,
+            'final_residual': 3.6477645428483503e-10, 'max_fine_scale': 1.1900584090673849e-05,
+        }),
+    ],
+    'refinement/advdif_hp.py': [
+        ('advdif_hp round=0', {'err': 0.07280522512513271, 'dofs': 144.0, 'leaves': 9.0}),
+        ('advdif_hp round=1', {'err': 0.058860188457781196, 'dofs': 195.0, 'leaves': 9.0}),
+        ('advdif_hp round=2', {'err': 0.049935257047890876, 'dofs': 246.0, 'leaves': 9.0}),
+        ('advdif_hp round=3', {'err': 0.046181431748856694, 'dofs': 326.0, 'leaves': 9.0}),
+    ],
+    'refinement/advdif_hp_projection.py': [
+        ('advdif_hp_projection final', {
+            'p_err': 0.00062282867383568, 'hp_err': 0.0004836825114700663,
+            'h_err': 0.008295406978584406,
+        }),
+    ],
+    'refinement/direct_poisson_refined.py': [
+        ('explicit round=0', {'err': 0.01968618618561526, 'dofs': 336.0, 'leaves': 16.0}),
+        ('explicit round=1', {'err': 0.004852365424325188, 'dofs': 431.0, 'leaves': 16.0}),
+        ('explicit round=2', {'err': 0.004480566755279371, 'dofs': 556.0, 'leaves': 16.0}),
+        ('explicit round=3', {'err': 0.004425737072153231, 'dofs': 711.0, 'leaves': 16.0}),
+        ('order_reduction round=0', {'err': 0.01968618618561526, 'dofs': 336.0, 'leaves': 16.0}),
+        ('order_reduction round=1', {'err': 0.004852365424325187, 'dofs': 431.0, 'leaves': 16.0}),
+        ('order_reduction round=2', {'err': 0.00427457470640668, 'dofs': 550.0, 'leaves': 16.0}),
+        ('order_reduction round=3', {'err': 0.0021004018456124676, 'dofs': 645.0, 'leaves': 16.0}),
+        ('local_inverse round=0', {'err': 0.01968618618561526, 'dofs': 336.0, 'leaves': 16.0}),
+        ('local_inverse round=1', {'err': 0.028090661737292247, 'dofs': 391.0, 'leaves': 31.0}),
+        ('local_inverse round=2', {'err': 0.01691304649478192, 'dofs': 469.0, 'leaves': 31.0}),
+        ('local_inverse round=3', {'err': 0.02482653459413779, 'dofs': 539.0, 'leaves': 43.0}),
+    ],
+    'refinement/poisson_hp_strategies.py': [
+        ('poisson_hp_strategies final', {
+            'p_err': 0.0006017741049349605, 'hp_err': 0.0006017741049349605,
+            'h_err': 0.007925619598638923,
+        }),
+    ],
+    'steady/direct_poisson.py': [
+        ('direct_poisson p=1', {'l2_u': 0.02872195005897609}),
+        ('direct_poisson p=2', {'l2_u': 0.0013105768678966132}),
+        ('direct_poisson p=3', {'l2_u': 4.586584818851172e-05}),
+        ('direct_poisson p=4', {'l2_u': 1.3874872180982068e-06}),
+        ('direct_poisson p=5', {'l2_u': 3.6535887473573134e-08}),
+        ('direct_poisson p=6', {'l2_u': 8.491285433115592e-10}),
+    ],
+    'steady/linear_adv_dif.py': [
+        ('linear_adv_dif p=2', {'l2_u': 0.03938643560777691}),
+        ('linear_adv_dif p=3', {'l2_u': 0.0028706411668760886}),
+        ('linear_adv_dif p=4', {'l2_u': 0.00016202526730300576}),
+        ('linear_adv_dif p=5', {'l2_u': 6.912266801406809e-06}),
+    ],
+    'steady/mixed_poisson.py': [
+        ('mixed_poisson p=1', {'l2_u': 0.39216627959890954, 'h1_q': 0.36704856859755014}),
+        ('mixed_poisson p=2', {'l2_u': 0.01985027765752812, 'h1_q': 0.027462326787966482}),
+        ('mixed_poisson p=3', {'l2_u': 0.001133160041063963, 'h1_q': 0.0014367047171939837}),
+        ('mixed_poisson p=4', {'l2_u': 5.125286621069403e-05, 'h1_q': 5.8817321242751336e-05}),
+        ('mixed_poisson p=5', {'l2_u': 1.8763920041767378e-06, 'h1_q': 2.000048617196399e-06}),
+        ('mixed_poisson p=6', {'l2_u': 5.864531203033873e-08, 'h1_q': 5.814660400220041e-08}),
+    ],
+    'steady/navier_stokes.py': [
+        ('navier_stokes Re=10.0 iters=18', {
+            'err_vel': 5.107046837265608e-07, 'err_vor': 5.859642399811938e-08,
+        }),
+    ],
+    'steady/stokes_flow.py': [
+        ('stokes p=2', {
+            'err_vel': 0.00714039451252582, 'err_vor': 0.0008564784737874957,
+            'div_max': 1.078932413231471e-15,
+        }),
+        ('stokes p=4', {
+            'err_vel': 1.174339477586483e-05, 'err_vor': 5.907655279327018e-07,
+            'div_max': 8.480262568752255e-15,
+        }),
+        ('stokes p=6', {
+            'err_vel': 7.324256212738104e-09, 'err_vor': 2.035283325132041e-10,
+            'div_max': 3.139129912028664e-14,
+        }),
+    ],
+    'unsteady/cavity_flow.py': [
+        ('cavity_flow', {'max_speed': 1.018806347154015, 'kinetic_energy': 0.061647560120770654}),
+    ],
+    'unsteady/forced_heat.py': [
+        ('forced_heat nt=  8', {'max_err': 0.0002626978357074261}),
+        ('forced_heat nt= 16', {'max_err': 6.552947857252356e-05}),
+        ('forced_heat nt= 32', {'max_err': 1.9669489449980482e-05}),
+    ],
+    'unsteady/heat_direct.py': [
+        ('heat_direct nt=4', {'dt': 0.5, 'err': 0.0028660627693435138}),
+        ('heat_direct nt=8', {'dt': 0.25, 'err': 0.000706317977103994}),
+        ('heat_direct nt=16', {'dt': 0.125, 'err': 0.00017528162740728132}),
+        ('heat_direct nt=32', {'dt': 0.0625, 'err': 4.45026682160512e-05}),
+        ('heat_direct nt=64', {'dt': 0.03125, 'err': 1.63725262046298e-05}),
+    ],
+    'unsteady/heat_mixed.py': [
+        ('heat_mixed nt=8', {'dt': 0.25, 'err': 0.0008377037453601754}),
+        ('heat_mixed nt=16', {'dt': 0.125, 'err': 0.00044415804351221114}),
+        ('heat_mixed nt=32', {'dt': 0.0625, 'err': 0.00039938057834263687}),
+    ],
+    'unsteady/reaction.py': [
+        ('reaction nt=8', {'err': 0.0010054621232673533}),
+        ('reaction nt=16', {'err': 0.00027278720982193416}),
+        ('reaction nt=32', {'err': 9.01476598736961e-05}),
+        ('reaction nt=64', {'err': 5.3677855983425005e-05}),
+    ],
+    'unsteady/reaction_mixed.py': [
+        ('reaction_mixed nt=8', {'err': 0.000658123285070448}),
+        ('reaction_mixed nt=32', {'err': 0.0003939005348993298}),
+    ],
+    'unsteady/unsteady_bc.py': [
+        ('unsteady-bc nt=  8', {'max_err': 0.00013089299092139406}),
+        ('unsteady-bc nt= 16', {'max_err': 3.270057447135599e-05}),
+        ('unsteady-bc nt= 32', {'max_err': 8.337930984536612e-06}),
+        ('resumed nt=32', {'max_err': 8.337930984536612e-06}),
+    ],
+    'unsteady/vector_reaction.py': [
+        ('vector_reaction nt=16', {'err': 0.00047134111676550017}),
+        ('vector_reaction nt=64', {'err': 0.00026881390983996}),
+    ],
+}
+
+# Each value is held to the JAX package's absolutely, at the fields' scale:
+# to round-off through a direct solve, to the stopping tolerance through a
+# Krylov solve (the multi-device scripts' trace CG and GMRES).
+GALLERY_TOL = 1e-10
+GALLERY_KRYLOV_TOL = 1e-8
+# Report lines held to their titles only: direct_poisson_refined.py's
+# local-inverse rounds after the first refine by estimates that are
+# round-off of a singular element problem in both packages (1e24 to 1e27;
+# ROADMAP section 3), so which leaves split depends on the LU.
+GALLERY_TITLES_ONLY = {
+    "refinement/direct_poisson_refined.py": {f"local_inverse round={i}" for i in (1, 2, 3)},
+}
+# The kernels each script's path launches, by the port's code (a rehearsal
+# of this phase on the CPU with the wrappers counting their plain
+# versions): every script has a 1-form mass (a 1-form unknown, or the
+# derivative of a 0-form), so every script launches M1; only the element-
+# sharded solves (the multi-device scripts' trace CG and VMS Green's
+# saddles) invert element blocks.  The single-card scripts solve by host
+# SuperLU, and the local-inverse estimator by torch.linalg.solve.
+GALLERY_KERNELS = {
+    rel: ("mass_edge", "gj_inverse") if rel.startswith("parallel/") else ("mass_edge",)
+    for rel in JAX_GALLERY
+}
+
+
+def _p18_check_reports(rel: str, reports: list, devices: int = 1) -> float:
+    """``rel``'s report lines against the JAX gallery's; their largest gap."""
+    want = JAX_GALLERY[rel]
+    titles = [t.replace("devices=1", f"devices={devices}") for t, _ in want]
+    if [t for t, _ in reports] != titles:
+        raise RuntimeError(f"18: {rel} reported {[t for t, _ in reports]}, the JAX gallery {titles}")
+    tol = GALLERY_KRYLOV_TOL if rel.startswith("parallel/") else GALLERY_TOL
+    worst = 0.0
+    for (title, mine), (_, ref) in zip(reports, want):
+        if mine.keys() != ref.keys():
+            raise RuntimeError(f"18: {rel} [{title}] reports {sorted(mine)}, not {sorted(ref)}")
+        if title in GALLERY_TITLES_ONLY.get(rel, ()):
+            continue
+        for key, value in ref.items():
+            gap = abs(mine[key] - value)
+            worst = max(worst, gap)
+            if not gap <= tol:
+                raise RuntimeError(
+                    f"18: {rel} [{title}] {key}={mine[key]!r}, the JAX gallery {value!r}"
+                    f" (gap {gap:.3e} > {tol:.0e})"
+                )
+    return worst
+
+
+def _p18_capture_reports(module) -> list:
+    """The report calls of the script ``module``, at full precision, as they
+    print."""
+    reports, report = [], module.report
+
+    def capturing(title, **values):
+        reports.append((title, {k: float(v) for k, v in values.items()}))
+        report(title, **values)
+
+    module.report = capturing
+    return reports
+
+
+def _p18_rank(device_mesh, script: str) -> dict:
+    """A rank of a multi-device gallery script: its ``run`` with the kernel
+    launches counted by shape, its reports, and on rank 0 both kernels held
+    and timed at every shape it launched them on."""
+    import torch.distributed as dist
+    from examples_torch.common import load_script
+    from mfv2d_torch.ops.kernels import gj_inverse, mass_edge
+
+    rel = str(Path(script).relative_to(ROOT / "examples_torch"))
+    module = load_script(script)
+    reports = _p18_capture_reports(module)
+    with _KernelRecorder() as rec:
+        mass_edge.launches = 0
+        gj_inverse.launches = 0
+        rec.part = f"18 {rel}"
+        t0 = time.perf_counter()
+        module.run(device_mesh)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        rec.part = None
+    counts = {"mass_edge": mass_edge.launches, "gj_inverse": gj_inverse.launches}
+    kernels = _p17_time_recorded(rec, "18", " on a rank") if dist.get_rank() == 0 else None
+    return {"reports": reports, "wall": wall, "launches": counts, "kernels": kernels}
+
+
+def phase18_gallery() -> dict:
+    """Every script of examples_torch/ on the card, its reports against the
+    JAX gallery's and its kernel launches counted; then both kernels held
+    and timed at every shape the scripts launched them on."""
+    from examples_torch.common import DEVICE, load_script, spawn_ranks
+    from mfv2d_torch.ops.kernels import gj_inverse, mass_edge
+
+    scripts = sorted((ROOT / "examples_torch").glob("*/*.py"))
+    rels = [str(s.relative_to(ROOT / "examples_torch")) for s in scripts]
+    if sorted(rels) != sorted(JAX_GALLERY):
+        raise RuntimeError(f"18: the gallery has {rels}, the JAX gallery {sorted(JAX_GALLERY)}")
+    print(f"phase 18: {len(scripts)} gallery scripts on {DEVICE}")
+    per_script, failures, rank_kernels = {}, [], []
+    with _KernelRecorder() as rec:
+        for script, rel in zip(scripts, rels):
+            mass_edge.launches = 0
+            gj_inverse.launches = 0
+            t0 = time.perf_counter()
+            try:
+                if rel.startswith("parallel/"):
+                    rec.part = None
+                    ranks = spawn_ranks(_p18_rank, str(script))
+                    reports, counts = ranks[0]["reports"], ranks[0]["launches"]
+                    rank_kernels.append(ranks[0]["kernels"])
+                    devices = len(ranks)
+                    # The script's run on rank 0; with the spawn, the group's
+                    # start and rank 0's kernel timing beside it.
+                    wall = ranks[0]["wall"]
+                    extra = {"with_spawn_s": round(time.perf_counter() - t0, 3)}
+                else:
+                    module = load_script(script)
+                    reports = _p18_capture_reports(module)
+                    rec.part = f"18 {rel}"
+                    module.main()
+                    torch.cuda.synchronize()
+                    rec.part = None
+                    counts = {"mass_edge": mass_edge.launches, "gj_inverse": gj_inverse.launches}
+                    devices = 1
+                    wall, extra = time.perf_counter() - t0, {}
+                gap = _p18_check_reports(rel, reports, devices)
+            except Exception:  # one script's failure is reported, the rest still run
+                import traceback
+
+                rec.part = None
+                failures.append(rel)
+                print(f"phase 18: FAIL {rel}\n{traceback.format_exc()}")
+                continue
+            per_script[rel] = {"wall_s": round(wall, 3), **extra, "largest_gap": gap, **counts}
+            print(
+                f"phase 18: OK {rel}: {len(reports)} reports within {gap:.3e} of the JAX"
+                f" gallery's, wall {wall:.3f} s {extra or ''}, launches {counts}"
+            )
+            missing = [k for k in GALLERY_KERNELS[rel] if counts[k] <= 0]
+            if missing:
+                failures.append(rel)
+                print(f"phase 18: FAIL {rel} launched no {missing}")
+    if failures:
+        raise RuntimeError(f"18: gallery scripts failed: {failures}")
+    kernels = _p17_time_recorded(rec, "18", "")
+    for timed in rank_kernels:
+        for name in ("mass_edge", "gj_inverse"):
+            kernels[name] += timed[name]
+    losing = [
+        (t["n"], t["E"], t["ms"], t["library_ms"])
+        for t in kernels["gj_inverse"] if t["ms"] > t["library_ms"]
+    ]
+    print(f"phase 18: inverse shapes slower than torch.linalg.inv (n, E, ms, library ms): {losing}")
+    return {"scripts": per_script, **kernels}
+
+
+# Phase 18b: BASELINE config 3, the Stokes flow in VVP form (vorticity,
+# velocity, pressure; stokes_flow's divergence unknown left out) on 32x32
+# at p=8 through static condensation: element blocks of n = (2p+1)^2 = 289
+# on the inverse's streamed route, M1 at p=8, E=1024.  The JAX package's
+# unknowns, Picard iterations and errors at this size on the CPU
+# (tools/gallery_reference.py); the errors are round-off, so a wrong solve
+# shows as a gap far above the tolerance.
+CONFIG3_MESH, CONFIG3_ORDER = 32, 8
+JAX_CONFIG3 = {'n_total_dofs': 328703,
+               'iterations': 1,
+               'err_vel': 2.4687864398145233e-14,
+               'err_vor': 5.189369199879501e-14,
+               'err_prs': 1.4065406051269863e-14}
+
+
+def phase18b_stokes() -> dict:
+    import mfv2d_torch as mf
+    from mfv2d_torch.models import flow
+    from mfv2d_torch.ops.kernels import gj_inverse, mass_edge
+    from mfv2d_torch.tracing import tracer
+
+    n = (2 * CONFIG3_ORDER + 1) ** 2
+    route = gj_inverse.route(n, torch.float64)
+    print(f"  n={n} f64 blocks take the {route} route")
+    if route != "streamed":
+        raise RuntimeError(f"the n={n} blocks take the {route} route, not the streamed one")
+    model = flow.stokes_flow(with_divergence=False)
+    mesh = mf.examples.unit_square_mesh(CONFIG3_MESH, CONFIG3_MESH, CONFIG3_ORDER)
+    with _KernelRecorder() as rec:
+        mass_edge.launches = 0
+        gj_inverse.launches = 0
+        tracer.enable()
+        tracer.reset()
+        torch.cuda.reset_peak_memory_stats()
+        rec.part = "18b"
+        t0 = time.perf_counter()
+        grids, stats, _ = mf.solve_system_2d(
+            mesh,
+            mf.SystemSettings(model.system),
+            mf.SolverSettings(
+                mf.ConvergenceSettings(absolute_tolerance=1e-10, relative_tolerance=0),
+                linear_solver="schur_direct",
+            ),
+            recon_order=CONFIG3_ORDER,
+            device="cuda",
+        )
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        rec.part = None
+        tracer.disable()
+    counts = {"mass_edge": mass_edge.launches, "gj_inverse": gj_inverse.launches}
+    peak = torch.cuda.max_memory_allocated()
+    grid = grids[-1]
+    x, y = grid.points[:, 0], grid.points[:, 1]
+    vel = grid.point_data["vel"] - flow.stokes_velocity_exact(x, y)
+    got = {
+        "n_total_dofs": int(stats.n_total_dofs),
+        "iterations": int(stats.iter_history[-1]),
+        "err_vel": float(np.sqrt(np.mean(np.sum(vel**2, axis=-1)))),
+        "err_vor": float(
+            np.sqrt(np.mean((grid.point_data["vor"] - flow.stokes_vorticity_exact(x, y)) ** 2))
+        ),
+        "err_prs": float(np.sqrt(np.mean(grid.point_data["prs"] ** 2))),
+    }
+    print(
+        f"phase 18b: Stokes {CONFIG3_MESH}x{CONFIG3_MESH} p={CONFIG3_ORDER} schur_direct:"
+        f" {got} (the JAX package on the CPU: {JAX_CONFIG3}), wall {wall:.3f} s, peak device"
+        f" memory {peak} bytes, launches {counts}"
+    )
+    for name, (calls, total) in sorted(tracer.stages.items(), key=lambda kv: -kv[1][1]):
+        print(f"  stage {name:28s} {total:9.4f} s ({calls} calls)")
+    for key in ("n_total_dofs", "iterations"):
+        if got[key] != JAX_CONFIG3[key]:
+            raise RuntimeError(f"18b: {key} {got[key]}, the JAX package {JAX_CONFIG3[key]}")
+    for key in ("err_vel", "err_vor", "err_prs"):
+        if not abs(got[key] - JAX_CONFIG3[key]) <= GALLERY_TOL:
+            raise RuntimeError(f"18b: {key} {got[key]!r}, the JAX package {JAX_CONFIG3[key]!r}")
+    _require_launches("18b", **counts)
+    if (n, CONFIG3_MESH**2) not in rec.gj_inverse:
+        raise RuntimeError(f"18b: no inverse of the n={n} blocks: {sorted(rec.gj_inverse)}")
+    kernels = _p17_time_recorded(rec, "18b", "")
+    stages = {k: v[1] for k, v in tracer.stages.items()}
+    return {"wall_s": wall, "peak_bytes": peak, "stages": stages, **got, **kernels}
 
 
 # Wall seconds of each phase after the build, printed before the reports.
@@ -3162,14 +3498,21 @@ def main() -> int:
         "--probe",
         nargs="?",
         const="inverse",
-        choices=("inverse", "mass", "hp", "vms", "parallel"),
+        choices=("inverse", "mass", "hp", "vms", "parallel", "gallery"),
         help="phases 0 and 1, then only phase 6 (inverse, the default), 2 (mass),"
-        " 14 (hp), 15 (vms) or 16 and 17 (parallel)",
+        " 14 (hp), 15 (vms), 16 and 17 (parallel) or 18 and 18b (gallery)",
     )
     args = parser.parse_args()
 
     phase0_device()
     phase1_build()
+    if args.probe == "gallery":
+        gallery = _timed("18", phase18_gallery)
+        stokes = _timed("18b", phase18b_stokes)
+        print(f"phase walls (s): {PHASE_WALLS}")
+        kernels = _p17_kernel_entries(gallery) + _p17_kernel_entries(stokes)
+        print(json.dumps({"phase 18": gallery["scripts"], "kernels": kernels}))
+        return 0
     if args.probe == "hp":
         print(json.dumps(phase14_hp()))
         return 0
@@ -3211,6 +3554,8 @@ def main() -> int:
     vms = _timed("15", phase15_vms)
     parallel = _timed("16", phase16_parallel)
     parallel17 = _timed("17", phase17_parallel)
+    gallery = _timed("18", phase18_gallery)
+    stokes = _timed("18b", phase18b_stokes)
     print(f"phase walls (s): {PHASE_WALLS}")
     # The VMS inclusion's reference element: its launches run by run, as
     # phases 15 and 17 counted them at its shape.
@@ -3325,7 +3670,13 @@ def main() -> int:
             # Phase 17: both kernels at every shape its runs launched them
             # on, with rank 0's launches of each.
             *_p17_kernel_entries(parallel17),
-        ]
+            # Phases 18 and 18b: both kernels at every shape the gallery
+            # scripts and config 3 launched them on, with the launches of
+            # each script.
+            *_p17_kernel_entries(gallery),
+            *_p17_kernel_entries(stokes),
+        ],
+        "phase 18": gallery["scripts"],
     }
     print(json.dumps(report))
     print(

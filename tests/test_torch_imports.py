@@ -1,5 +1,5 @@
-"""The PyTorch port stands alone: no JAX, no mfv2d_tpu, and its host copies
-render the golden compiler strings byte for byte."""
+"""The PyTorch port and its gallery stand alone: no JAX, no mfv2d_tpu, and
+its host copies render the golden compiler strings byte for byte."""
 
 import ast
 import subprocess
@@ -38,6 +38,15 @@ def _imported_roots(path: Path) -> set[str]:
 )
 def test_port_sources_import_no_jax(path):
     assert not _imported_roots(path) & set(FORBIDDEN)
+
+
+@pytest.mark.parametrize(
+    "path", sorted((ROOT / "examples_torch").rglob("*.py")), ids=lambda p: str(p.relative_to(ROOT))
+)
+def test_gallery_sources_import_no_jax(path):
+    """The port's gallery imports neither JAX nor the JAX package, nor the
+    JAX gallery (``examples``, whose scripts import its ``common``)."""
+    assert not _imported_roots(path) & {*FORBIDDEN, "examples", "common"}
 
 
 def test_import_leaves_no_jax_modules():

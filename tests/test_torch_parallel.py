@@ -17,18 +17,15 @@ import contextlib
 import functools
 import importlib
 import os
-import queue as queue_module
 import shutil
-import socket
-import time
-from datetime import timedelta
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 
-SPAWN_TIMEOUT_S = 300
-PG_TIMEOUT_S = 120
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))  # the repo root, for examples_torch
 
 
 def u_exact(x, y):
@@ -307,79 +304,29 @@ CASES = {
 }
 
 
-def _rank_main(rank, world, port, cases, tmp, queue):
-    """One rank: join the gloo group, run ``cases`` (name -> function) in
-    order, send the results."""
-    import torch.distributed as dist
-    from torch.distributed.device_mesh import init_device_mesh
-
+def _run_cases(mesh, cases, tmp):
+    """A rank's job: run ``cases`` (name -> function) in order; their
+    results by name."""
     torch.set_num_threads(1)
-    try:
-        dist.init_process_group(
-            "gloo", init_method=f"tcp://localhost:{port}", world_size=world, rank=rank,
-            timeout=timedelta(seconds=PG_TIMEOUT_S),
-        )
-        mesh = init_device_mesh("cpu", (world,))
-        results = {}
-        for name, case in cases.items():
-            case_tmp = os.path.join(tmp, f"{name}-{world}")
-            os.makedirs(case_tmp, exist_ok=True)
-            results[name] = case(mesh, case_tmp)
-        queue.put((rank, results))
-        dist.destroy_process_group()
-    except BaseException as exc:  # reported to the parent, which fails the test
-        import traceback
-
-        queue.put((rank, traceback.format_exc()))
-        raise exc
-
-
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
+    results = {}
+    for name, case in cases.items():
+        case_tmp = os.path.join(tmp, f"{name}-{mesh.size()}")
+        os.makedirs(case_tmp, exist_ok=True)
+        results[name] = case(mesh, case_tmp)
+    return results
 
 
 def run_ranks(world: int, names, tmp, table=None) -> list[dict]:
     """Run the named cases of ``table`` (name -> module-level function of
     ``(mesh, tmp)``; this module's ``CASES`` by default) on ``world``
     spawned gloo ranks; results by rank."""
-    import torch.multiprocessing as mp
+    # Imported here, not with this module: the gallery's tests set the
+    # gallery's device before they import it.
+    from examples_torch.common import spawn_ranks
 
     table = CASES if table is None else table
     cases = {name: table[name] for name in names}
-    ctx = mp.get_context("spawn")
-    queue = ctx.Queue()
-    port = _free_port()
-    procs = [
-        ctx.Process(target=_rank_main, args=(r, world, port, cases, str(tmp), queue))
-        for r in range(world)
-    ]
-    for p in procs:
-        p.start()
-    results = {}
-    deadline = time.monotonic() + SPAWN_TIMEOUT_S
-    try:
-        while len(results) < world:
-            try:
-                rank, res = queue.get(timeout=2)
-            except queue_module.Empty:
-                dead = [p.exitcode for p in procs if p.exitcode not in (None, 0)]
-                assert not dead and time.monotonic() < deadline, (
-                    f"ranks hung or died: exit codes {[p.exitcode for p in procs]}"
-                )
-                continue
-            if isinstance(res, str):
-                raise AssertionError(f"rank {rank} failed:\n{res}")
-            results[rank] = res
-    finally:
-        for p in procs:
-            p.join(timeout=30)
-            if p.is_alive():
-                p.kill()
-                p.join()
-    assert all(p.exitcode == 0 for p in procs), [p.exitcode for p in procs]
-    return [results[r] for r in range(world)]
+    return spawn_ranks(_run_cases, cases, str(tmp), world=world, device="cpu")
 
 
 @pytest.fixture(scope="module")
