@@ -593,15 +593,18 @@ def phase4_main_path() -> int:
 
     model = poisson.mixed_poisson()
     mesh = mf.examples.unit_square_mesh(64, 64, 4)
+
+    def solve():
+        out = mf.solve_system_2d(mesh, mf.SystemSettings(model.system), recon_order=4, device="cuda")
+        torch.cuda.synchronize()
+        return out
+
     tracer.enable()
     tracer.reset()
     torch.cuda.reset_peak_memory_stats()
     mass_edge.launches = 0
     t0 = time.perf_counter()
-    grids, stats, _ = mf.solve_system_2d(
-        mesh, mf.SystemSettings(model.system), recon_order=4, device="cuda"
-    )
-    torch.cuda.synchronize()
+    grids, stats, _ = solve()
     wall = time.perf_counter() - t0
     launches = mass_edge.launches
     tracer.disable()
@@ -620,6 +623,7 @@ def phase4_main_path() -> int:
         raise RuntimeError(f"mixed Poisson error {err:.3e} > 1e-8")
     if launches <= 0:
         raise RuntimeError("the main path did not launch the mass_edge kernel")
+    _require_no_uploads(4, "the solve again, warm", solve)
     return launches
 
 
@@ -675,6 +679,7 @@ def phase5_picard() -> int:
     )
     if mass_edge.launches <= 0:
         raise RuntimeError("the Picard path did not launch the mass_edge kernel")
+    _require_no_uploads(5, "the solve again, warm", lambda: _navier_stokes("direct"))
     return iters
 
 
@@ -953,6 +958,39 @@ def _require_launches(phase: int, **counts: int) -> None:
             raise RuntimeError(f"phase {phase} did not launch the {name} kernel")
 
 
+def _require_no_uploads(phase, label: str, fn):
+    """Run ``fn``, a run whose constant tables an earlier run of the phase
+    uploaded, with the device-table cache's upload counter at 0; print its
+    wall and fail if it uploaded a table."""
+    from mfv2d_torch.ops import device_tables
+
+    device_tables.uploads = device_tables.upload_bytes = 0
+    t0 = time.perf_counter()
+    result = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    print(
+        f"  {label}: wall {wall:.3f} s, constant tables uploaded {device_tables.uploads}"
+        f" ({device_tables.upload_bytes} bytes)"
+    )
+    if device_tables.uploads:
+        raise RuntimeError(
+            f"phase {phase}: {label} uploaded {device_tables.uploads} constant tables"
+        )
+    return result
+
+
+def _print_memory(phase) -> None:
+    """Peak device memory since the last reset, and what the device-table
+    cache holds now (tables that earlier phases left resident included)."""
+    from mfv2d_torch.ops import device_tables
+
+    print(
+        f"  phase {phase}: max_memory_allocated {torch.cuda.max_memory_allocated()} bytes,"
+        f" device tables resident {device_tables.resident_bytes('cuda')} bytes"
+    )
+
+
 def phase7_schur_cg() -> int:
     from mfv2d_torch.ops.kernels import gj_inverse, mass_edge
     from mfv2d_torch.solver import iterative
@@ -977,9 +1015,10 @@ def phase7_schur_cg() -> int:
     return gj_inverse.launches
 
 
-def _device_profile(label: str, fn) -> None:
+def _device_profile(label: str, fn) -> dict:
     """Run ``fn`` under torch.profiler; print the device busy time and the
-    device time by name (kernels and copies)."""
+    device time by name (kernels and copies), and return the wall, the busy
+    time and the copy time each way."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1009,6 +1048,7 @@ def _device_profile(label: str, fn) -> None:
     )
     for us, count, key in sorted(rows, reverse=True)[:8]:
         print(f"    {us / 1e3:11.3f} ms {count:7d}  {key[:80]}")
+    return {"wall_s": wall, "busy_s": busy, **copies}
 
 
 def phase8_static_condensation() -> int:
@@ -1023,8 +1063,13 @@ def phase8_static_condensation() -> int:
     REFERENCES["phase 8"] = _mixed_poisson_at_size(64, 8, "schur_direct", phase=8)
     launches = mass_edge.launches
     _require_launches(8, gj_inverse=gj_inverse.launches, mass_edge=launches)
-    _device_profile(
+    profile = _require_no_uploads(8, "the solve again, warm, profiled", lambda: _device_profile(
         "phase 8, warm", lambda: _mixed_poisson_at_size(64, 8, "schur_direct", phase=8)
+    ))
+    print(
+        f"  phase 8 warm copies: H2D {1e3 * profile['HtoD']:.1f} ms, D2H"
+        f" {1e3 * profile['DtoH']:.1f} ms (with a copy of every constant table each call,"
+        f" on an NVIDIA H100 80GB HBM3 at 700 W: 265.0 and 696.5 ms)"
     )
     return launches
 
@@ -1034,7 +1079,9 @@ def phase9_picard_condensed(direct_iterations: int) -> None:
 
     gj_inverse.launches = 0
     mass_edge.launches = 0
-    iters, err, wall, _, _ = _navier_stokes("schur_direct")
+    iters, err, wall, _, _ = _require_no_uploads(
+        9, "the solve, after phase 5's of the same orders", lambda: _navier_stokes("schur_direct")
+    )
     print(
         f"phase 9: Navier-Stokes Re=10 16x16 p=5 schur_direct: {iters} Picard"
         f" iterations (direct: {direct_iterations}), velocity error {err:.3e},"
@@ -1116,6 +1163,7 @@ def phase13_p16() -> tuple[int, int]:
     mass_edge.launches = 0
     tracer.enable()
     tracer.reset()
+    torch.cuda.reset_peak_memory_stats()
     iters, err, wall, stats, _ = _navier_stokes("schur_direct", n=4, p=16)
     tracer.disable()
     print(
@@ -1126,6 +1174,7 @@ def phase13_p16() -> tuple[int, int]:
     for name, (calls, total) in sorted(tracer.stages.items(), key=lambda kv: -kv[1][1]):
         print(f"  stage {name:28s} {total:9.4f} s ({calls} calls)")
     _require_launches(13, gj_inverse=gj_inverse.launches, mass_edge=mass_edge.launches)
+    _print_memory(13)
     if iters != JAX_P16_PICARD_ITERATIONS:
         raise RuntimeError(
             f"p=16 Picard took {iters} iterations, the JAX package {JAX_P16_PICARD_ITERATIONS}"
@@ -1166,7 +1215,14 @@ def _p13_first_assembly() -> None:
             settings.boundary_conditions, None,
         )
 
-    _device_profile("phase 13, the first assembly again, warm", fresh())
+    profile = _require_no_uploads(13, "the first assembly again, warm, profiled", lambda: (
+        _device_profile("phase 13, the first assembly again, warm", fresh())
+    ))
+    print(
+        f"  phase 13 warm first assembly: wall {profile['wall_s']:.4f} s, H2D"
+        f" {profile['HtoD']:.4f} s (with a copy of every constant table each call, on an"
+        f" NVIDIA H100 80GB HBM3 at 700 W: 0.438 and 0.3514 s)"
+    )
     # The host's share by Python function, from one more run.
     profiler = cProfile.Profile()
     profiler.runcall(fresh())
@@ -1596,6 +1652,7 @@ def phase14_hp() -> dict:
     orchestrator.perform_mesh_refinement = counting_refinement
     mass_edge.launches = 0
     gj_inverse.launches = 0
+    torch.cuda.reset_peak_memory_stats()
     mesh = mf.examples.unit_square_mesh(32, 32, 4)
     errors, walls, finals = [], {}, {}
     inverse_launches = 0
@@ -1664,6 +1721,7 @@ def phase14_hp() -> dict:
     finally:
         orchestrator.perform_mesh_refinement = perform
         mass_edge.mass_edge = launch_m1
+    _print_memory("14 (hp rounds and final solves)")
     phase_launches = {"mass_edge": mass_edge.launches, "gj_inverse": inverse_launches}
     gap = max(
         float(np.abs(finals["schur_direct"].point_data[k] - finals["direct"].point_data[k]).max()
@@ -1793,6 +1851,7 @@ def _vms_solve(n: int, p: int, matrix_free: bool, keep_grid: bool = False):
     config 5 at n=64, p=8), on the card, traced; with ``keep_grid`` also
     its last grid."""
     import mfv2d_torch as mf
+    from mfv2d_torch.ops import device_tables
     from mfv2d_torch.tracing import tracer
 
     model, symmetric = _vms_systems(_vms_u, _vms_source)
@@ -1828,6 +1887,7 @@ def _vms_solve(n: int, p: int, matrix_free: bool, keep_grid: bool = False):
         "wall_s": wall,
         "stages": {k: v[1] for k, v in tracer.stages.items()},
         "peak_bytes": torch.cuda.max_memory_allocated(),
+        "device_tables_bytes": device_tables.resident_bytes("cuda"),
     }
     return (run, grids[-1]) if keep_grid else run
 
@@ -1930,7 +1990,8 @@ def phase15_vms() -> dict:
             f" package: {JAX_CONFIG5['iterations']}, plain Picard {CONFIG5_MAX_ITERATIONS}),"
             f" u error {run['u_error']!r} (JAX {JAX_CONFIG5['u_error']!r}), max |vms-u|"
             f" {run['vms_max']!r} (JAX 9.25e-12 to 6.6e-11), wall {run['wall_s']:.3f} s,"
-            f" max_memory_allocated {run['peak_bytes']} bytes"
+            f" max_memory_allocated {run['peak_bytes']} bytes, device tables resident"
+            f" {run['device_tables_bytes']} bytes"
         )
         for stage, total in sorted(run["stages"].items(), key=lambda kv: -kv[1]):
             print(f"  stage {stage:60s} {total:9.4f} s")
@@ -3422,15 +3483,9 @@ def phase18b_stokes() -> dict:
         raise RuntimeError(f"the n={n} blocks take the {route} route, not the streamed one")
     model = flow.stokes_flow(with_divergence=False)
     mesh = mf.examples.unit_square_mesh(CONFIG3_MESH, CONFIG3_MESH, CONFIG3_ORDER)
-    with _KernelRecorder() as rec:
-        mass_edge.launches = 0
-        gj_inverse.launches = 0
-        tracer.enable()
-        tracer.reset()
-        torch.cuda.reset_peak_memory_stats()
-        rec.part = "18b"
-        t0 = time.perf_counter()
-        grids, stats, _ = mf.solve_system_2d(
+
+    def solve():
+        out = mf.solve_system_2d(
             mesh,
             mf.SystemSettings(model.system),
             mf.SolverSettings(
@@ -3441,6 +3496,17 @@ def phase18b_stokes() -> dict:
             device="cuda",
         )
         torch.cuda.synchronize()
+        return out
+
+    with _KernelRecorder() as rec:
+        mass_edge.launches = 0
+        gj_inverse.launches = 0
+        tracer.enable()
+        tracer.reset()
+        torch.cuda.reset_peak_memory_stats()
+        rec.part = "18b"
+        t0 = time.perf_counter()
+        grids, stats, _ = solve()
         wall = time.perf_counter() - t0
         rec.part = None
         tracer.disable()
@@ -3474,6 +3540,7 @@ def phase18b_stokes() -> dict:
     _require_launches("18b", **counts)
     if (n, CONFIG3_MESH**2) not in rec.gj_inverse:
         raise RuntimeError(f"18b: no inverse of the n={n} blocks: {sorted(rec.gj_inverse)}")
+    _require_no_uploads("18b", "the solve again, warm", solve)
     kernels = _p17_time_recorded(rec, "18b", "")
     stages = {k: v[1] for k, v in tracer.stages.items()}
     return {"wall_s": wall, "peak_bytes": peak, "stages": stages, **got, **kernels}

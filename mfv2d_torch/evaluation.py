@@ -48,7 +48,6 @@ from mfv2d_torch.ops.kernels import gj_inverse as gj_inverse_kernel
 from mfv2d_torch.ops.kernels import mass_edge as mass_edge_kernel
 from mfv2d_torch.ops.mass import (
     TensorBasis,
-    as_like,
     batch_jacobian,
     mass_edge_double,
     mass_edge_surf,
@@ -162,22 +161,38 @@ class ElementBatch:
         n_h = tb.bh.shape[0]
         c_h = dofs[:, :n_h]
         c_v = dofs[:, n_h:]
-        out_eta = c_h @ as_like(tb.bh, dofs)
-        out_xi = c_v @ as_like(tb.bv, dofs)
+        out_eta = c_h @ tb.tensor("bh", dofs)
+        out_xi = c_v @ tb.tensor("bv", dofs)
         jac = self.jac
         fx = (out_xi * jac.j00 + out_eta * jac.j10) / jac.det
         fy = (out_xi * jac.j01 + out_eta * jac.j11) / jac.det
         return torch.stack([fx, fy], dim=-1)
 
 
-def _incidence_for(batch: ElementBatch, begin: UnknownFormOrder, transpose) -> np.ndarray:
-    kind = {
+def _incidence_kind(begin: UnknownFormOrder, transpose) -> int:
+    return {
         (int(UnknownFormOrder.FORM_ORDER_0), False): INCIDENCE_E10,
         (int(UnknownFormOrder.FORM_ORDER_1), False): INCIDENCE_E21,
         (int(UnknownFormOrder.FORM_ORDER_0), True): INCIDENCE_E10_T,
         (int(UnknownFormOrder.FORM_ORDER_1), True): INCIDENCE_E21_T,
     }[(int(begin), bool(transpose))]
-    return incidence_matrix(kind, batch.tb.p1, batch.tb.p2)
+
+
+def _incidence_tensor(batch: ElementBatch, incs: tuple, like: torch.Tensor) -> torch.Tensor:
+    """The product of the incidence matrices ``incs``, each a ``(begin,
+    transpose)`` pair, left to right, at the batch's orders, in ``like``'s
+    dtype on its device: from the basis's device tables."""
+    tb = batch.tb
+    kinds = tuple(_incidence_kind(*inc) for inc in incs)
+
+    def product() -> np.ndarray:
+        mats = [incidence_matrix(kind, tb.p1, tb.p2) for kind in kinds]
+        out = mats[0]
+        for mat in mats[1:]:
+            out = out @ mat
+        return out
+
+    return tb.tables.like(("incidence", *kinds), product, like)
 
 
 def _interprod_matrix(
@@ -203,7 +218,8 @@ class _State:
 
     kind: 'invalid' | 'identity' | 'incidence' | 'full'
     For vectors the full payload is ``[E, n]``; for matrices ``[E, r, c]``.
-    Payloads may alias memoized masses, so they are never modified in place.
+    Payloads may alias memoized masses and cached device tables, so they
+    are never modified in place.
     """
 
     __slots__ = ("kind", "coef", "payload", "inc")
@@ -218,19 +234,20 @@ class _State:
         return _State(self.kind, self.coef, self.payload, self.inc)
 
 
-def _left_apply_const(mat_const: np.ndarray, state: _State, batch: ElementBatch) -> _State:
-    """Left-multiply the state by a constant (non-batched) matrix."""
+def _left_apply_incidence(inc: tuple, state: _State, batch: ElementBatch) -> _State:
+    """Left-multiply the state by the incidence matrix ``inc``, a ``(begin,
+    transpose)`` pair."""
     det = batch.jac.det
-    m = as_like(mat_const, det)
     e = batch.n_elements
     if state.kind in ("invalid", "identity"):
+        m = _incidence_tensor(batch, (inc,), det)
         coef = state.coef if state.kind == "identity" else 1.0
         return _State("full", coef, m.expand((e,) + tuple(m.shape)))
     if state.kind == "incidence":
-        e_mat = _incidence_for(batch, *state.inc)
-        prod = as_like(mat_const @ e_mat, det)
+        prod = _incidence_tensor(batch, (inc, state.inc), det)
         return _State("full", state.coef, prod.expand((e,) + tuple(prod.shape)))
     if state.kind == "full":
+        m = _incidence_tensor(batch, (inc,), det)
         if state.payload.ndim == 2:  # vector [E, n]
             return _State("full", state.coef, state.payload @ m.T)
         return _State("full", state.coef, torch.matmul(m, state.payload))
@@ -243,7 +260,7 @@ def _left_apply_batched(mat: torch.Tensor, state: _State, batch: ElementBatch) -
         coef = state.coef if state.kind == "identity" else 1.0
         return _State("full", coef, mat)
     if state.kind == "incidence":
-        e_mat = as_like(_incidence_for(batch, *state.inc), mat)
+        e_mat = _incidence_tensor(batch, (state.inc,), mat)
         return _State("full", state.coef, torch.matmul(mat, e_mat))
     if state.kind == "full":
         if state.payload.ndim == 2:
@@ -272,7 +289,7 @@ def _materialize(
         eye = torch.eye(n_cols, dtype=det.dtype, device=det.device)
         return state.coef * eye.expand(e, n_cols, n_cols)
     if state.kind == "incidence":
-        e_mat = as_like(_incidence_for(batch, *state.inc), det)
+        e_mat = _incidence_tensor(batch, (state.inc,), det)
         if vector:
             return state.coef * (initial @ e_mat.T)
         return state.coef * e_mat.expand((e,) + tuple(e_mat.shape))
@@ -324,8 +341,7 @@ def evaluate_block(
                 coef = current.coef if current.kind == "identity" else 1.0
                 current = _State("incidence", coef, inc=(op.begin, bool(op.transpose)))
             else:
-                e_mat = _incidence_for(batch, op.begin, bool(op.transpose))
-                current = _left_apply_const(e_mat, current, batch)
+                current = _left_apply_incidence((op.begin, bool(op.transpose)), current, batch)
         elif t is MassMat:
             m = batch.mass(op.order, op.inv)
             current = _left_apply_batched(m, current, batch)

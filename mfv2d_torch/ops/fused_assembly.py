@@ -21,7 +21,11 @@ mass inverse or composing two field-weighted grams) raise :class:`NotLinear`
 and fall back to the stack-machine path.
 
 The planner (everything up to :func:`plan_block`) is host NumPy; only
-:func:`evaluate_kspec` and :func:`evaluate_block_fused` run on tensors.
+:func:`evaluate_kspec` and :func:`evaluate_block_fused` run on tensors.  A
+plan's pair tables and constant blocks are uploaded at their first use and
+then served from the plan's device tables
+(:mod:`mfv2d_torch.ops.device_tables`), which go with the plan when
+:func:`_cached_plan` drops it.
 
 Reference hot path replaced: src/evaluation/element_system.c:13 +
 src/fem_space/fem_space.c:235-846.
@@ -29,7 +33,7 @@ src/fem_space/fem_space.c:235-846.
 
 from __future__ import annotations
 
-from dataclasses import dataclass, replace
+from dataclasses import dataclass, field, replace
 from functools import lru_cache
 from typing import Sequence
 
@@ -46,8 +50,9 @@ from mfv2d_torch.compiler import (
     Sum,
 )
 from mfv2d_torch.kform import UnknownFormOrder
+from mfv2d_torch.ops.device_tables import Tables
 from mfv2d_torch.ops.incidence import incidence_matrix
-from mfv2d_torch.ops.mass import TensorBasis, as_like
+from mfv2d_torch.ops.mass import TensorBasis, tensor_basis
 
 
 class NotLinear(Exception):
@@ -315,12 +320,14 @@ class _Group:
 
 @dataclass(frozen=True)
 class BlockPlan:
-    """Fused evaluation plan for one block."""
+    """Fused evaluation plan for one block; ``tables`` holds the device
+    copies of its group tables and constant blocks."""
 
     n_rows: int
     n_cols: int
     groups: tuple[_Group, ...]
     consts: tuple  # of (coef, mat | None)
+    tables: Tables = field(default_factory=Tables, init=False, repr=False, compare=False)
 
 
 def plan_block(ops, tb: TensorBasis, p1: int, p2: int) -> BlockPlan:
@@ -371,7 +378,7 @@ def plan_block(ops, tb: TensorBasis, p1: int, p2: int) -> BlockPlan:
 def evaluate_kspec(spec: tuple, batch, fields: dict) -> torch.Tensor:
     """Evaluate a metric/field factor to an ``[E, nq]`` tensor."""
     jac = batch.jac
-    w = as_like(batch.tb.w, jac.det)
+    w = batch.tb.tensor("w", jac.det)
     kind = spec[0]
     if kind == "wdet":
         return jac.det * w
@@ -408,20 +415,23 @@ def evaluate_block_fused(
     e = batch.n_elements
     det = batch.jac.det
     out = det.new_zeros((e, plan.n_rows, plan.n_cols))
-    for g in plan.groups:
+    for i, g in enumerate(plan.groups):
         ks = []
         for spec in g.kspecs:
             if spec not in k_cache:
                 k_cache[spec] = evaluate_kspec(spec, batch, fields)
             ks.append(k_cache[spec])
         k = ks[0] if len(ks) == 1 else torch.cat(ks, dim=1)
-        piece = (k @ as_like(g.table, k)).reshape(e, g.row_cnt, g.col_cnt)
+        table = plan.tables.like(("group", i), lambda: g.table, k)
+        piece = (k @ table).reshape(e, g.row_cnt, g.col_cnt)
         out[:, g.row_off : g.row_off + g.row_cnt,
             g.col_off : g.col_off + g.col_cnt] += piece
 
-    for coef, mat in plan.consts:
-        base = np.eye(plan.n_rows) if mat is None else mat
-        out = out + as_like(coef * base, det)
+    for i, (coef, mat) in enumerate(plan.consts):
+        const = plan.tables.like(
+            ("const", i), lambda: coef * (np.eye(plan.n_rows) if mat is None else mat), det
+        )
+        out = out + const
     return out
 
 
@@ -430,10 +440,7 @@ def _cached_plan(ops, p1: int, p2: int, int1: int, int2: int):
     """Plan cache keyed on the op chain + orders (NotLinear cached too)."""
     from mfv2d_torch.ops.basis import FemCache
 
-    basis = FemCache(0).get_basis2d(p1, p2, int1, int2)
-    from mfv2d_torch.ops.mass import tensor_basis
-
-    tb = tensor_basis(basis)
+    tb = tensor_basis(FemCache(0).get_basis2d(p1, p2, int1, int2))
     try:
         return plan_block(ops, tb, p1, p2)
     except NotLinear as exc:

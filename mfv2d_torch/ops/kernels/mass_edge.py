@@ -27,7 +27,6 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import weakref
 from typing import NamedTuple
 
 import numpy as np
@@ -71,10 +70,6 @@ THREAD_REGISTERS = 128
 # on and above the block diagonal and hv once; the kernel stores the mirror
 # images, so vh has no tiles.
 HH, HV, VV = range(3)
-# Device copies of the padded table and the weights, one per (TensorBasis,
-# dtype, device, table rows, ld), and of the tile lists, dropped when the
-# TensorBasis is collected.
-_tables: dict[tuple, torch.Tensor] = {}
 
 
 class Card(NamedTuple):
@@ -359,24 +354,12 @@ def _device_tables(
     tb: TensorBasis, plan: LaunchPlan, like: torch.Tensor
 ) -> tuple[torch.Tensor, ...]:
     """The padded table, ``w`` and the tile or panel codes of ``plan`` on
-    ``like``'s device, the first two in its dtype.  Both routes share the
-    table of a layout (rows and ``ld``)."""
-
-    def cached(key, make):
-        tensor = _tables.get(key)
-        if tensor is None:
-            tensor = _tables[key] = make()
-            weakref.finalize(tb, _tables.pop, key, None)
-        return tensor
-
-    at = (id(tb), like.dtype, like.device)
+    ``like``'s device, the first two in its dtype, from the basis's device
+    tables.  Both routes share the table of a layout (rows and ``ld``)."""
     return (
-        cached((*at, "table", plan.nq_pad, plan.ld), lambda: torch.tensor(
-            padded_table(tb, plan), dtype=like.dtype, device=like.device)),
-        cached((*at, "w"), lambda: torch.tensor(
-            np.asarray(tb.w), dtype=like.dtype, device=like.device)),
-        cached((id(tb), like.device, "tiles", plan.tiles), lambda: torch.tensor(
-            plan.tiles, dtype=torch.int32, device=like.device)),
+        tb.tables.like(("m1 table", plan.nq_pad, plan.ld), lambda: padded_table(tb, plan), like),
+        tb.tensor("w", like),
+        tb.tables.get(("m1 tiles", plan.tiles), lambda: plan.tiles, torch.int32, like.device),
     )
 
 

@@ -18,7 +18,6 @@ import torch
 from mfv2d_torch.evaluation import ElementBatch, apply_mass
 from mfv2d_torch.kform import UnknownFormOrder
 from mfv2d_torch.ops.basis import Basis2D
-from mfv2d_torch.ops.mass import as_like
 from mfv2d_torch.ops.quadrature import dlagrange1d, lagrange1d
 from mfv2d_torch.system import ElementFormSpecification
 
@@ -63,17 +62,17 @@ def element_dual_dofs_batched(
     tb = batch.tb
     jac = batch.jac
     vals = torch.as_tensor(values, dtype=jac.det.dtype, device=jac.det.device)
-    w = as_like(tb.w, jac.det)
+    w = tb.tensor("w", jac.det)
     if order == UnknownFormOrder.FORM_ORDER_0:
-        return (vals * w * jac.det) @ as_like(tb.b0, jac.det).T
+        return (vals * w * jac.det) @ tb.tensor("b0", jac.det).T
     if order == UnknownFormOrder.FORM_ORDER_1:
         f_xi = (jac.j00 * vals[..., 0] + jac.j01 * vals[..., 1]) * w
         f_eta = (jac.j10 * vals[..., 0] + jac.j11 * vals[..., 1]) * w
-        d_h = f_eta @ as_like(tb.bh, f_eta).T
-        d_v = f_xi @ as_like(tb.bv, f_xi).T
+        d_h = f_eta @ tb.tensor("bh", f_eta).T
+        d_v = f_xi @ tb.tensor("bv", f_xi).T
         return torch.cat([d_h, d_v], dim=1)
     if order == UnknownFormOrder.FORM_ORDER_2:
-        return (vals * w) @ as_like(tb.b2, jac.det).T
+        return (vals * w) @ tb.tensor("b2", jac.det).T
     raise ValueError(f"Invalid form order {order}.")
 
 

@@ -76,8 +76,10 @@ class SolverSettings:
     rebuilt every iteration)."""
     device_mesh: object | None = None
     """A one-dimensional ``torch.distributed`` DeviceMesh, or the
-    ``parallel.sharding.TraceComm`` of one: the steady Picard solve then
-    runs element-sharded over its ranks, every rank calling alike."""
+    ``parallel.sharding.TraceComm`` of one: the solve then runs
+    element-sharded over its ranks, every rank calling alike, with every
+    option (steady Picard and Newton, the linear, Picard and Newton marches,
+    VMS, checkpoints, hp refinement)."""
     anderson_m: int = 0
     """Anderson acceleration window for the Picard loop (0 = off, the
     reference behavior).  With ``m > 0`` each update extrapolates over the
