@@ -46,12 +46,16 @@ Phases (each ends in torch.cuda.synchronize(); any failure exits non-zero):
    chooses (register up to 64, blocked to 218, streamed above: one panel
    block to 1024, a cluster of them beyond, to n=2401), the cluster of 8
    blocks at n=3585 and 4096 and its rows spilled to L2 at n=4097 and
-   5000 (one matrix each, with their times), a singular batch on the register, blocked and streamed routes and
+   5000 (one matrix each, with their times), odd n on the streamed route
+   (219, 289, 1025, 1089; its work matrix of 16-byte rows) at an odd E and
+   with the rows reversed, a singular batch on the register, blocked and
+   streamed routes (at odd n too) and
    on the clustered panel, and median times beside torch.linalg.inv and
    the bound (each must beat torch.linalg.inv): n=56 (E=4096), the
-   phase-9 blocks (n=121, E=256), n=208 (E=4096), n=289 and n=460
+   phase-9 blocks (n=121, E=256), n=208 (E=4096), n=289, 290 and n=460
    (E=1000), phase 10's Poisson blocks (n=320, E=256) and Navier-Stokes
-   blocks (n=441, E=16), n=1056 and 1089 (E=16) and n=2401 (E=4); where
+   blocks (n=441, E=16), n=1056, 1089 and 1090 (E=16) and n=2401 (E=4),
+   with the odd n=289 and 1089 beside the even n=290 and 1090; where
    a call of E <= 16 takes under 5 ms also ten calls back to back; the
    kernels one call launches, counted under torch.profiler
 7. Schur CG at size: mixed Poisson 64x64 p=4, linear_solver="schur"
@@ -219,15 +223,22 @@ TIMED_ONLY = "none (timed only)"
 # quadrature points.
 VMS_INCLUSION = [10, 10, 196, 1]
 KERNEL_TOL = {torch.float64: 1e-12, torch.float32: 1e-5}
+# The streamed route's odd n sweep a work matrix of 16-byte rows: its first
+# n (219) and the cluster's (1025), and config 3's and the p=16
+# Navier-Stokes blocks' n (289, 1089) beside the even n + 1, which takes as
+# many panels (290, 1090).
 INVERSE_SIZES = [
-    1, 16, 32, 33, 56, 64, 65, 121, 168, 170, 208, 289, 441, 460, 625, 1024, 1056, 1089, 2401
+    1, 16, 32, 33, 56, 64, 65, 121, 168, 170, 208, 219, 289, 290, 441, 460, 625, 1024, 1025,
+    1056, 1089, 1090, 2401
 ]
-INVERSE_BATCHES = [1, 1000, 4096]
+# An odd E (37) puts every other input matrix of an odd n 8 bytes off 16.
+INVERSE_BATCHES = [1, 37, 1000, 4096]
 # One matrix each, past the sizes above: the streamed panel over a cluster
 # of 8 blocks, then with its rows past 4,096 spilled to L2.
 INVERSE_LARGE = [3585, 4096, 4097, 5000]
 INVERSE_MAX_BATCH = {
-    289: 1000, 441: 1000, 460: 1000, 625: 256, 1024: 64, 1056: 16, 1089: 16, 2401: 4
+    219: 1000, 289: 1000, 290: 1000, 441: 1000, 460: 1000, 625: 256, 1024: 64, 1025: 64,
+    1056: 16, 1089: 16, 1090: 16, 2401: 4
 }
 # Timed inverse cases, each on the route its n takes: the p=4 blocks'
 # size (phase 7), the real phase-9 batch, the p=8 blocks' sizes, n=460,
@@ -238,18 +249,23 @@ INVERSE_TIMED = [
     "phase-9 blocks n=121 E=256",
     "saddle n=208 E=4096",
     "saddle n=289 E=1000",
+    "saddle n=290 E=1000",
     "saddle n=460 E=1000",
     "phase-10 Poisson blocks n=320 E=256",
     "phase-10 blocks n=441 E=16",
     "saddle n=1056 E=16",
     "saddle n=1089 E=16",
+    "saddle n=1090 E=16",
     "saddle n=2401 E=4",
 ]
+# Odd n beside the even n + 1 (same panels, as much work): printed as
+# pairs, with the ratio of their times.
+INVERSE_PAIRS = [(289, 290), (1089, 1090)]
 # The route each timed n takes in f64; every timed case must beat
 # torch.linalg.inv.
 INVERSE_ROUTES = {56: "register", 121: "blocked", 208: "blocked", 289: "streamed",
-                  320: "streamed", 441: "streamed", 460: "streamed", 1056: "streamed",
-                  1089: "streamed", 2401: "streamed"}
+                  290: "streamed", 320: "streamed", 441: "streamed", 460: "streamed",
+                  1056: "streamed", 1089: "streamed", 1090: "streamed", 2401: "streamed"}
 INVERSE_TOL = {torch.float64: 1e-10, torch.float32: 1e-3}
 # The H100 SXM's HBM rate and FP64 peak (tensor cores; NVIDIA data sheet):
 # the bound of a kernel is the larger of its compulsory bytes and its
@@ -775,7 +791,10 @@ def phase6_inverse_vs_plain() -> dict:
         route32 = gj_inverse.route(n, torch.float32)
         layout = ""
         if plan.route == "streamed":
-            layout = f" ({plan.panel} columns, {plan.blocks} panel blocks, {plan.spill} spilled)"
+            layout = (
+                f" ({plan.panel} columns, {plan.blocks} panel blocks, {plan.spill} spilled,"
+                f" rows {plan.ld} apart)"
+            )
         print(
             f"  saddle n={n:3d}: max cond {cond:.3e}, route f64 {plan.route}{layout},"
             f" f32 {route32}"
@@ -849,7 +868,20 @@ def phase6_inverse_vs_plain() -> dict:
                 raise RuntimeError(f"inverse kernel disagrees: {err:.3e} > {tol:.0e}")
         del a64, a, ref
 
-    for n in (56, 121, 208, 460, 1089):
+    # At odd n on the streamed route, the rows reversed, so that each panel
+    # swaps rows, at an odd E.
+    for n in (219, 289, 1025, 1089):
+        e = min(37, INVERSE_MAX_BATCH[n])
+        a64 = cases[f"saddle n={n} E={e}"].flip(1).contiguous()
+        for dtype, tol in INVERSE_TOL.items():
+            a = a64.to(dtype)
+            err = rel_err(gj_inverse.gj_inverse(a), gj_inverse_plain(a))
+            torch.cuda.synchronize()
+            print(f"  {str(dtype):14s} saddle n={n} E={e}, rows reversed: rel err {err:.3e}")
+            if not err <= tol:
+                raise RuntimeError(f"inverse kernel disagrees: {err:.3e} > {tol:.0e}")
+
+    for n in (56, 121, 208, 219, 289, 460, 1025, 1089):
         for dtype in INVERSE_TOL:
             e = min(1000, INVERSE_MAX_BATCH.get(n, 1000))
             singular = cases[f"saddle n={n} E={e}"][:8].to(dtype).clone()
@@ -872,6 +904,16 @@ def phase6_inverse_vs_plain() -> dict:
             raise RuntimeError(f"n={timed['n']} takes the {timed['route']} route, not {want}")
         if not timed["ms"] < timed["library_ms"]:
             raise RuntimeError(f"the {want} route does not beat torch.linalg.inv: {timed}")
+    by_n = {timed["n"]: timed for timed in routes}
+    pairs = []
+    for odd, even in INVERSE_PAIRS:
+        pair = {"odd": odd, "even": even, "E": by_n[odd]["E"], "odd_ms": by_n[odd]["ms"],
+                "even_ms": by_n[even]["ms"], "ratio": by_n[odd]["ms"] / by_n[even]["ms"]}
+        print(
+            f"phase 6: odd n={odd} against even n={even} (E={pair['E']}, as many panels):"
+            f" {pair['odd_ms']:.4f} against {pair['even_ms']:.4f} ms, ratio {pair['ratio']:.4f}"
+        )
+        pairs.append(pair)
     first = routes[0]
     return {
         "max_abs_err": max_abs,
@@ -881,6 +923,7 @@ def phase6_inverse_vs_plain() -> dict:
         "bound_by": first["bound_by"],
         "library_ms": first["library_ms"],
         "routes": routes,
+        "odd_even_pairs": pairs,
     }
 
 

@@ -124,25 +124,32 @@
 //         a thread of 256 (two rows of 32, or four of 16), swept with the
 //         blocked route's pivoting (each row rotated one place a step, so
 //         that column k always sits in the first register: no select
-//         tree), and written to the output, where it is the inverse's own
-//         columns M; the panel's row gather src (the row of the matrix as
-//         read that lands in each row) goes to a scratch array, and so does
-//         the running row permutation sigma, sigma'[i] = sigma[src[i]],
-//         written in place once every block of the matrix has read it.  Up
+//         tree), and written to the work matrix (below), where it is the
+//         inverse's own columns M; the panel's row gather src (the row of
+//         the matrix as read that lands in each row) goes to a scratch
+//         array, and so does the running row permutation sigma,
+//         sigma'[i] = sigma[src[i]], written in place once every block of
+//         the matrix has read it.  Up
 //         to n = 1024 one block holds a matrix's panel.  Above, a cluster
 //         of ceil(n / 512) blocks (at most 8, the portable size) holds it,
-//         512 rows of 32 columns a block, and a step crosses two cluster
-//         barriers instead of two block barriers: lane r of every warp
-//         stores the warp's pivot candidate in block r (distributed shared
-//         memory), each warp then reduces all 8 x blocks candidates itself,
-//         and the warps that hold the pivot row and row k spread them over
-//         their lanes with shuffles, each lane storing its entry in every
-//         block.  Past 8 x 512 = 4,096 rows each block keeps its share of
-//         the rest in natural column order in place in the output, where
-//         it stays in L2, and sweeps it with the same arithmetic (this
-//         spill and the cluster are template flags, compiled out of the
-//         one-block kernel of n <= 1024).  So the panel launch takes every
-//         n; the route
+//         512 rows of 32 columns a block, and a step takes a block barrier
+//         and one cluster barrier where one block takes two block
+//         barriers: behind the block barrier each block reduces its warps'
+//         maxima; the warp that holds the block's candidate row, and the
+//         warp that holds row k, spread them over their lanes with
+//         shuffles, each lane storing its entry in every block
+//         (distributed shared memory), and lane r of warp 0 stores the
+//         block's maximum in block r; behind the cluster barrier every
+//         block reduces the blocks' maxima and reads the pivot row from
+//         its own shared memory.  Two sets of these slots alternate by
+//         step: set s is next written in step t + 2, behind the barrier of
+//         step t + 1, which no thread reaches before it has read step t's,
+//         so no second cluster barrier orders their reuse.  Past 8 x 512 =
+//         4,096 rows each block keeps its share of the rest in natural
+//         column order in place in the work matrix, where it stays in L2,
+//         and sweeps it with the same arithmetic (this spill and the
+//         cluster are template flags, compiled out of the one-block kernel
+//         of n <= 1024).  So the panel launch takes every n; the route
 //         stops where its other launches' shared memory does (n = 19,370 in
 //         f64, where the column swaps' one row and its permutation fill a
 //         block), an element block of 3.0 GB;
@@ -163,6 +170,18 @@
 //         tried: their 10-bit mantissa is near the 1e-3 tolerance).
 //       then one launch undoes the row swaps as column swaps: column c of
 //       the result is column j of the swept matrix where sigma[j] = c.
+//     The panels and updates sweep a work matrix whose rows start 16 bytes
+//     apart: row stride ld, n rounded up to 16 bytes (n + 1 for odd n in
+//     f64; the wrapper's `launch_plan`), the output itself where ld = n,
+//     else a buffer of E n ld entries beside it (687 MB at n = 289,
+//     E = 1024).  The first panel and its update read the input (row
+//     stride n), and the column swaps write the output from the work
+//     matrix.  So every staged row of the work matrix moves in 16-byte
+//     cp.async pieces (a piece that straddles a strip's last column reads
+//     only up to it, so that no padding column is read as data) and the
+//     update stores two entries at once, 16 bytes in f64; with the rows
+//     n entries apart, odd n (every Navier-Stokes block, (2p + 1)^2, and
+//     config 3's n = 289) took 8-byte copies and single stores.
 //     2 ceil(n / b) + 1 launches a call (31 at n = 460, 71 at n = 1089) on
 //     the caller's stream, after a clear of info; each launch first reads
 //     info[e], so a matrix whose panel failed is left alone by the rest of
@@ -175,19 +194,25 @@
 //     without the products (the passes), 28.1 ms without the pivot steps,
 //     0.23 ms for the 31 launches alone; a ring of two stages, chunks of 64
 //     rows on 8 warps and 2 warps each owning whole tile rows were each
-//     within 5%, panels of 16 columns twice as slow.  At
-//     n = 1056 and 1089 (E = 16) and 2401 (E = 4) the cluster took 7.55,
-//     11.74 and 33.72 ms (torch.linalg.inv 26.05, 28.20 and 67.28 ms); one
-//     block of 16 columns with the rows past 1,024 in L2 13.99, 20.52 and
-//     115.74 ms (twice the passes), two blocks of 32 with theirs in L2
-//     11.74, 19.65 and 103.33 ms.  The cluster's pivot steps cost 2.87,
-//     3.05 and 6.85 ms of it, 2.7-2.9 us a step against 1.2 us for one
-//     block's at n = 441.  Odd n (every Navier-Stokes block, (2p + 1)^2)
-//     takes the update's 8-byte copies and single stores: 8.69 ms without
-//     the pivot steps at n = 1089 against 4.68 ms at n = 1056.  One matrix
-//     alone is slower than torch.linalg.inv above n = 2560 (chip_smoke.py
-//     phase 6: 33.17 against 21.05 ms at n = 4096, and each spilled row
-//     adds global round trips to the chain, 54.66 ms at n = 4097).
+//     within 5%, panels of 16 columns twice as slow.  At n = 1056 and
+//     1089 (E = 16) and 2401 (E = 4) the cluster takes 6.94, 9.37 and
+//     27.76 ms (torch.linalg.inv 27.41, 29.40 and 73.84 ms); one block of
+//     16 columns with the rows past 1,024 in L2 13.93, 18.64 and 108.22 ms
+//     (twice the passes), two blocks of 32 with theirs in L2 10.91, 14.48
+//     and 91.31 ms.  Its pivot steps cost 2.27, 2.35 and 5.47 ms of that,
+//     2.2 us a step against 1.2 us for one block's at n = 441; with two
+//     cluster barriers a step (the warp maxima of every block sent to
+//     every block, then the rows p and k) they cost 2.8 us a step, 7.58,
+//     10.02 and 28.93 ms a call.  In another call the step took 6.95, 9.24
+//     and 26.36 ms, two cluster barriers 7.59, 9.90 and 27.60 ms, and one
+//     cluster barrier behind every warp's candidate row sent to every
+//     block 7.26, 9.54 and 26.93 ms.  With rows n entries apart
+//     odd n took 11.80 against 11.05 ms at n = 289 (E = 1024) and 11.39
+//     against 9.37 ms at n = 1089, where the even n + 1 (as many panels)
+//     takes 11.20 and 9.39 ms.  One matrix alone is slower than
+//     torch.linalg.inv above n = 2560 (chip_smoke.py phase 6: 32.87
+//     against 21.03 ms at n = 4096, and each spilled row adds global round
+//     trips to the chain, 43.01 ms at n = 4097).
 // The row swaps of the blocked and streamed routes are undone as column
 // swaps at the end.  Which route and layout an n takes is decided by the
 // wrapper (mfv2d_torch/ops/kernels/gj_inverse.py, `launch_plan`), where it is
@@ -829,11 +854,12 @@ __device__ inline void sync_all() {
 
 // Streamed route (see the design note).  Panel launch: the blocks of one
 // matrix (a cluster of `blocks` where kCluster, else one) sweep columns
-// [k0, k0 + kB) of w (the input for the first panel, the output after) and
-// write them to the output.  Block r holds rows r kHeld + tid + q
+// [k0, k0 + kB) of w (the input, row stride ldw = n, for the first panel;
+// the work matrix after) and write them to the work matrix `out` (row
+// stride ld).  Block r holds rows r kHeld + tid + q
 // kBlockedThreads in registers; where kSpill, its `spill` rows from
 // blocks kHeld + r spill on in natural column order, in place in the
-// output's panel columns, where they stay in L2.  gather[e] takes the
+// work matrix's panel columns, where they stay in L2.  gather[e] takes the
 // panel's row gather src, and sigma[e] the running row permutation,
 // sigma'[i] = sigma[src[i]] (src[i] for the first panel).  The
 // instantiation of one block with no spill is the kernel of n <= 1024:
@@ -841,33 +867,37 @@ __device__ inline void sync_all() {
 // compiled out of it.
 template <typename T, int kRows, int kB, bool kCluster, bool kSpill>
 __global__ void __launch_bounds__(kBlockedThreads, 1)
-gj_streamed_panel_kernel(const T* w, T* out, int* info, int* gather, int* sigma, int n, int k0,
-                         int blocks, int spill) {
+gj_streamed_panel_kernel(const T* w, int ldw, T* out, int ld, int* info, int* gather, int* sigma,
+                         int n, int k0, int blocks, int spill) {
   constexpr int kHeld = kRows * kBlockedThreads;
-  constexpr int kSlots = (kCluster ? kMaxCluster : 1) * kBlockedWarps;
+  // A cluster's step publishes into one of two sets, by the parity of t.
+  constexpr int kSets = kCluster ? 2 : 1;
+  constexpr int kBlockSlots = kCluster ? kMaxCluster : 1;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  __shared__ T prow[kB];  // the pivot row, raw and rotated
-  __shared__ T oldk[kB];  // row k before the swap, rotated
-  __shared__ T red_key[kSlots];  // the warp maxima of every block
-  __shared__ int red_idx[kSlots];
+  // Raw and rotated: one block's pivot row, or each block's candidate row.
+  __shared__ __align__(16) T cand_row[kSets][kBlockSlots][kB];
+  __shared__ T oldk[kSets][kB];  // row k before the swap, rotated
+  __shared__ T red_key[kSets][kBlockedWarps];  // the block's warp maxima
+  __shared__ int red_idx[kSets][kBlockedWarps];
+  __shared__ T blk_key[kSets][kBlockSlots];  // the cluster's block maxima
+  __shared__ int blk_idx[kSets][kBlockSlots];
   int* src = reinterpret_cast<int*>(smem_raw);  // src[i]: the row as read that lands in row i
 
   const int nb = kCluster ? blocks : 1;
   const int rank = kCluster ? static_cast<int>(cg::this_cluster().block_rank()) : 0;
   const long long e = kCluster ? blockIdx.x / nb : blockIdx.x;
   if (info[e] != 0) return;  // an earlier panel of this matrix failed
-  const long long nn = static_cast<long long>(n) * n;
-  const T* we = w + e * nn;
-  T* oe = out + e * nn;
+  const T* we = w + e * n * ldw;
+  T* oe = out + e * n * ld;
   const int tid = threadIdx.x;
   const int lane = tid % kWarp;
   const int warp = tid / kWarp;
   const int bk = min(kB, n - k0);
   const int row0 = rank * kHeld;  // the first register row
-  // The spilled rows: first + m, m < count; row m, column k0 + c at sp[m n + c].
+  // The spilled rows: first + m, m < count; row m, column k0 + c at sp[m ld + c].
   const int first = nb * kHeld + rank * spill;
   const int count = kSpill ? max(0, min(spill, n - first)) : 0;
-  T* sp = oe + static_cast<long long>(first) * n + k0;
+  T* sp = oe + static_cast<long long>(first) * ld + k0;
 
   for (int i = tid; i < n; i += kBlockedThreads) src[i] = i;
   T v[kRows][kB];
@@ -876,28 +906,36 @@ gj_streamed_panel_kernel(const T* w, T* out, int* info, int* gather, int* sigma,
     const int i = row0 + tid + q * kBlockedThreads;
 #pragma unroll
     for (int j = 0; j < kB; ++j) {
-      v[q][j] = i < n && j < bk ? we[static_cast<long long>(i) * n + k0 + j] : T(0);
+      v[q][j] = i < n && j < bk ? we[static_cast<long long>(i) * ldw + k0 + j] : T(0);
     }
   }
   if constexpr (kSpill) {
-    if (we != oe) {  // the first panel: the spilled rows' columns to the output
+    if (we != oe) {  // the first panel: the spilled rows' columns to the work matrix
       for (int idx = tid; idx < count * bk; idx += kBlockedThreads) {
         const int m = idx / bk;
         const int c = idx - m * bk;
-        sp[static_cast<long long>(m) * n + c] = we[static_cast<long long>(first + m) * n + k0 + c];
+        sp[static_cast<long long>(m) * ld + c] =
+            we[static_cast<long long>(first + m) * ldw + k0 + c];
       }
     }
   }
   // Every block of the cluster has started before any writes to another.
   sync_all<kCluster>();
 
-  // bk pivot steps, each behind two barriers, as in the blocked route, but
-  // with column k0 + t at v[q][0] in step t: each step rotates a row left
-  // by one place, the eliminated column's new entry going to the last
-  // place, so that no register is indexed by t (no select tree).  The
-  // pivot row is broadcast raw and every thread scales by the pivot itself.
+  // bk pivot steps, as in the blocked route, but with column k0 + t at
+  // v[q][0] in step t: each step rotates a row left by one place, the
+  // eliminated column's new entry going to the last place, so that no
+  // register is indexed by t (no select tree).  The pivot row is broadcast
+  // raw and every thread scales by the pivot itself.  First a block
+  // barrier: the block's maximum over its warps' maxima.  One block: then
+  // a second, behind which the rows p and k are in shared memory.  A
+  // cluster: the warp that holds the block's candidate row, and the warp
+  // that holds row k, store those rows into every block, and one cluster
+  // barrier later every block reduces the blocks' maxima and reads the
+  // pivot row from its own shared memory.
   for (int t = 0; t < bk; ++t) {
     const int k = k0 + t;
+    const int set = kCluster ? t & 1 : 0;
     T key = T(-1);
     int idx = n;
 #pragma unroll
@@ -907,7 +945,7 @@ gj_streamed_panel_kernel(const T* w, T* out, int* info, int* gather, int* sigma,
     }
     if constexpr (kSpill) {
       for (int m = tid; m < count; m += kBlockedThreads) {
-        const T x = sp[static_cast<long long>(m) * n + t];
+        const T x = sp[static_cast<long long>(m) * ld + t];
         if (first + m >= k) take_max(key, idx, pivot_key(x), first + m);
       }
     }
@@ -916,56 +954,30 @@ gj_streamed_panel_kernel(const T* w, T* out, int* info, int* gather, int* sigma,
       const int other_idx = __shfl_xor_sync(0xffffffffu, idx, off);
       take_max(key, idx, other_key, other_idx);
     }
-    // Lane b hands the warp's maximum to block b.
-    if (lane < nb) {
-      store_to<kCluster>(red_key + rank * kBlockedWarps + warp, key, lane);
-      store_to<kCluster>(red_idx + rank * kBlockedWarps + warp, idx, lane);
+    if (lane == 0) {
+      red_key[set][warp] = key;
+      red_idx[set][warp] = idx;
     }
-    sync_all<kCluster>();
-    if constexpr (!kCluster) {
-      key = red_key[0];
-      idx = red_idx[0];
+    __syncthreads();
+    key = red_key[set][0];
+    idx = red_idx[set][0];
 #pragma unroll
-      for (int r = 1; r < kBlockedWarps; ++r) take_max(key, idx, red_key[r], red_idx[r]);
-    } else {  // up to 64 maxima: two a lane, then a butterfly
-      key = T(-1);
-      idx = n;
-      for (int r = lane; r < nb * kBlockedWarps; r += kWarp) {
-        take_max(key, idx, red_key[r], red_idx[r]);
-      }
-      for (int off = kWarp / 2; off > 0; off /= 2) {
-        const T other_key = __shfl_xor_sync(0xffffffffu, key, off);
-        const int other_idx = __shfl_xor_sync(0xffffffffu, idx, off);
-        take_max(key, idx, other_key, other_idx);
-      }
-    }
-    if (!(key > T(0) && key < T(INFINITY))) {  // the same in every thread of the cluster
-      if (rank == 0 && tid == 0) info[e] = k + 1;
-      return;
-    }
-    const int p = idx;
-    // The rows p and k, rotated as the register rows are, go to prow and
-    // oldk of every block: from the thread that holds them (one block), the
-    // warp that holds them (a cluster: one entry a lane, so that each lane
-    // stores `blocks` values) or, for a spilled row, the first kB threads.
-    if constexpr (!kCluster) {
-#pragma unroll
-      for (int q = 0; q < kRows; ++q) {
-        const int i = tid + q * kBlockedThreads;
-        if (i == p) {
-#pragma unroll
-          for (int j = 0; j < kB; ++j) prow[j] = v[q][j];
-        }
-        if (i == k) {
-#pragma unroll
-          for (int j = 0; j < kB; ++j) oldk[j] = v[q][j];
-        }
-      }
-    } else {
+    for (int r = 1; r < kBlockedWarps; ++r) take_max(key, idx, red_key[set][r], red_idx[set][r]);
+    int win = 0;  // the block whose candidate is the pivot row
+    if constexpr (kCluster) {
+      // The block's candidate row idx and row k, rotated as the register
+      // rows are, to slot `rank` and to oldk of set `set` in every block,
+      // and the block's maximum to slot `rank` of every block.  Set `set`
+      // is next written in step t + 2, after the barrier of step t + 1,
+      // which every thread reaches only once it has read this step's.
 #pragma unroll
       for (int s = 0; s < 2; ++s) {
-        const int rel = (s == 0 ? p : k) - row0;
-        if (rel >= 0 && rel < kHeld && warp == rel % kBlockedThreads / kWarp) {
+        const int row = s == 0 ? idx : k;
+        T* to = s == 0 ? cand_row[set][rank] : oldk[set];
+        const int rel = row - row0;
+        if (row < n && rel >= 0 && rel < kHeld && warp == rel % kBlockedThreads / kWarp) {
+          // A register row of this warp: one entry a lane, by shuffles,
+          // each lane storing its entry in every block.
           const int q_own = rel / kBlockedThreads;
           T mine = T(0);
 #pragma unroll
@@ -977,19 +989,64 @@ gj_streamed_panel_kernel(const T* w, T* out, int* info, int* gather, int* sigma,
             if (lane == j) mine = x;
           }
           if (lane < kB) {
-            for (int b = 0; b < nb; ++b) store_to<kCluster>((s == 0 ? prow : oldk) + lane, mine, b);
+            for (int b = 0; b < nb; ++b) store_to<kCluster>(to + lane, mine, b);
+          }
+        } else if (kSpill && row < n && row >= first && row < first + count && warp == 0) {
+          // A spilled row of this block, written in the last step, before
+          // the block barrier.
+          if (lane < kB) {
+            const int c = (t + lane) & (kB - 1);
+            const T x = c < bk ? sp[static_cast<long long>(row - first) * ld + c] : T(0);
+            for (int b = 0; b < nb; ++b) store_to<kCluster>(to + lane, x, b);
           }
         }
       }
+      if (warp == 0 && lane < nb) {
+        store_to<kCluster>(&blk_key[set][rank], key, lane);
+        store_to<kCluster>(&blk_idx[set][rank], idx, lane);
+      }
+      sync_all<kCluster>();
+      key = blk_key[set][0];
+      idx = blk_idx[set][0];
+      for (int b = 1; b < nb; ++b) {
+        const T other_key = blk_key[set][b];
+        const int other_idx = blk_idx[set][b];
+        if (other_key > key || (other_key == key && other_idx < idx)) {
+          key = other_key;
+          idx = other_idx;
+          win = b;
+        }
+      }
     }
-    if constexpr (kSpill) {
+    if (!(key > T(0) && key < T(INFINITY))) {  // the same in every thread of the cluster
+      if (rank == 0 && tid == 0) info[e] = k + 1;
+      return;
+    }
+    const int p = idx;
+    if constexpr (!kCluster) {
+      // The rows p and k go to the pivot row's slot and to oldk from the
+      // thread that holds them or, for a spilled row, the first kB threads.
 #pragma unroll
-      for (int s = 0; s < 2; ++s) {
-        const int row = s == 0 ? p : k;
-        if (row >= first && row < first + count && tid < kB) {
-          const int c = (t + tid) & (kB - 1);
-          const T x = c < bk ? sp[static_cast<long long>(row - first) * n + c] : T(0);
-          for (int b = 0; b < nb; ++b) store_to<kCluster>((s == 0 ? prow : oldk) + tid, x, b);
+      for (int q = 0; q < kRows; ++q) {
+        const int i = tid + q * kBlockedThreads;
+        if (i == p) {
+#pragma unroll
+          for (int j = 0; j < kB; ++j) cand_row[0][0][j] = v[q][j];
+        }
+        if (i == k) {
+#pragma unroll
+          for (int j = 0; j < kB; ++j) oldk[0][j] = v[q][j];
+        }
+      }
+      if constexpr (kSpill) {
+#pragma unroll
+        for (int s = 0; s < 2; ++s) {
+          const int row = s == 0 ? p : k;
+          if (row >= first && row < first + count && tid < kB) {
+            const int c = (t + tid) & (kB - 1);
+            const T x = c < bk ? sp[static_cast<long long>(row - first) * ld + c] : T(0);
+            (s == 0 ? cand_row[0][0] : oldk[0])[tid] = x;
+          }
         }
       }
     }
@@ -998,7 +1055,9 @@ gj_streamed_panel_kernel(const T* w, T* out, int* info, int* gather, int* sigma,
       src[k] = src[p];
       src[p] = s_k;
     }
-    sync_all<kCluster>();
+    if constexpr (!kCluster) __syncthreads();
+    const T* prow = cand_row[set][win];
+    const T* old_row = oldk[set];
     const T inv_pivot = T(1) / prow[0];
 #pragma unroll
     for (int q = 0; q < kRows; ++q) {
@@ -1010,7 +1069,7 @@ gj_streamed_panel_kernel(const T* w, T* out, int* info, int* gather, int* sigma,
       } else if (i < n) {
         if (i == p) {  // row p takes the old row k
 #pragma unroll
-          for (int j = 0; j < kB; ++j) v[q][j] = oldk[j];
+          for (int j = 0; j < kB; ++j) v[q][j] = old_row[j];
         }
         const T f = v[q][0] * inv_pivot;
 #pragma unroll
@@ -1023,22 +1082,25 @@ gj_streamed_panel_kernel(const T* w, T* out, int* info, int* gather, int* sigma,
       // kB of the rotated rows.  Each is read and written by one thread.
       for (int m = tid; m < count; m += kBlockedThreads) {
         const int i = first + m;
-        T* r = sp + static_cast<long long>(m) * n;
+        T* r = sp + static_cast<long long>(m) * ld;
         if (i == k) {
           for (int c = 0; c < bk; ++c) {
             r[c] = c == t ? inv_pivot : inv_pivot * prow[(c - t) & (kB - 1)];
           }
         } else {
           const bool moved = i == p;  // row p takes the old row k
-          const T f = (moved ? oldk[0] : r[t]) * inv_pivot;
+          const T f = (moved ? old_row[0] : r[t]) * inv_pivot;
           for (int c = 0; c < bk; ++c) {
             const int j = (c - t) & (kB - 1);
-            r[c] = c == t ? -f : fused_mul_add(-f, prow[j], moved ? oldk[j] : r[c]);
+            r[c] = c == t ? -f : fused_mul_add(-f, prow[j], moved ? old_row[j] : r[c]);
           }
         }
       }
     }
   }
+  // tid 0's last swap of src, in a cluster (one block: since the last
+  // step's second barrier).
+  if constexpr (kCluster) __syncthreads();
   // A ragged last panel rotates on, without arithmetic, until each column
   // is back in its place (the padding columns stay zero).
   for (int t = bk; t < kB; ++t) {
@@ -1059,13 +1121,13 @@ gj_streamed_panel_kernel(const T* w, T* out, int* info, int* gather, int* sigma,
     if (i < n) {
 #pragma unroll
       for (int j = 0; j < kB; ++j) {
-        if (j < bk) oe[static_cast<long long>(i) * n + k0 + j] = v[q][j];
+        if (j < bk) oe[static_cast<long long>(i) * ld + k0 + j] = v[q][j];
       }
     }
   }
-  // src is final since the last step's second barrier.  Each row's slot of
-  // src then takes its new permutation entry, which goes out once every
-  // block of the matrix has read the old permutation.
+  // src is final.  Each row's slot of src then takes its new permutation
+  // entry, which goes out once every block of the matrix has read the old
+  // permutation.
   int* ge = gather + e * n;
   int* se = sigma + e * n;
 #pragma unroll
@@ -1094,11 +1156,11 @@ gj_streamed_panel_kernel(const T* w, T* out, int* info, int* gather, int* sigma,
   }
 }
 
-// kBytes from global to shared memory with cp.async, or zeros where !ok.
+// kBytes to shared memory with cp.async: the first src_bytes from global
+// memory, zeros after them.
 template <int kBytes>
-__device__ inline void copy_async_zfill(void* to_shared, const void* from_global, bool ok) {
+__device__ inline void copy_async_zfill(void* to_shared, const void* from_global, int src_bytes) {
   const unsigned to = static_cast<unsigned>(__cvta_generic_to_shared(to_shared));
-  const int src_bytes = ok ? kBytes : 0;
   if constexpr (kBytes == 16) {
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(to), "l"(from_global),
                  "r"(src_bytes)
@@ -1119,11 +1181,13 @@ __device__ inline void copy_async_wait_pending() {
 
 // Stages `count` rows of a kB-wide strip into shared memory (row stride
 // kB + kStreamPad): row r takes columns [col0, col0 + cols) of row rows[r]
-// (row row0 + r where rows is null) of the n x n matrix m, and zeros past
-// `cols` and for r >= valid.  `vec`: 16-byte copies (n a multiple of 16
-// bytes, both matrices aligned).
+// (row row0 + r where rows is null) of the matrix m of row stride ld, and
+// zeros past `cols` and for r >= valid.  `vec`: 16-byte copies (ld a
+// multiple of 16 bytes and m aligned); a copy that straddles `cols` reads
+// only the entries before it, so an odd strip never reads a padding
+// column.
 template <typename T, int kB>
-__device__ inline void stage_rows(T* to, const T* m, int n, int col0, int cols, const int* rows,
+__device__ inline void stage_rows(T* to, const T* m, int ld, int col0, int cols, const int* rows,
                                   int row0, int count, int valid, bool vec) {
   constexpr int kLd = kB + kStreamPad;
   if (vec) {
@@ -1134,7 +1198,8 @@ __device__ inline void stage_rows(T* to, const T* m, int n, int col0, int cols, 
       const int c = (idx - r * kPer) * kVec;
       const bool ok = r < valid && c < cols;
       const long long row = ok ? (rows ? rows[r] : row0 + r) : 0;
-      copy_async_zfill<16>(to + r * kLd + c, m + row * n + col0 + (ok ? c : 0), ok);
+      const int bytes = ok ? min(cols - c, kVec) * static_cast<int>(sizeof(T)) : 0;
+      copy_async_zfill<16>(to + r * kLd + c, m + row * ld + col0 + (ok ? c : 0), bytes);
     }
   } else {
     for (int idx = threadIdx.x; idx < count * kB; idx += blockDim.x) {
@@ -1142,7 +1207,8 @@ __device__ inline void stage_rows(T* to, const T* m, int n, int col0, int cols, 
       const int c = idx - r * kB;
       const bool ok = r < valid && c < cols;
       const long long row = ok ? (rows ? rows[r] : row0 + r) : 0;
-      copy_async_zfill<sizeof(T)>(to + r * kLd + c, m + row * n + col0 + (ok ? c : 0), ok);
+      copy_async_zfill<sizeof(T)>(to + r * kLd + c, m + row * ld + col0 + (ok ? c : 0),
+                                  ok ? static_cast<int>(sizeof(T)) : 0);
     }
   }
 }
@@ -1210,12 +1276,14 @@ size_t streamed_update_bytes(int kb, int n) {
 
 // Update launch: one block per matrix and column tile other than the
 // panel's, C'[i] = (i in K ? 0 : C[src[i]]) + sum_t M[i,t] C[src[k0 + t]],
-// C read from w, M from the output's panel columns.  Each warp owns 16
+// C read from w (row stride ldw; `vec_w`: its rows move in 16-byte
+// pieces), M from the panel columns of the work matrix `out` (row stride
+// ld; `vec`: likewise), C' written there.  Each warp owns 16
 // rows and kB / kColGroups columns of every chunk of kStreamRows rows.
 template <typename T, int kB>
 __global__ void __launch_bounds__(kStreamThreads)
-gj_streamed_update_kernel(const T* w, T* out, const int* info, const int* gather, int n, int k0,
-                          int vec) {
+gj_streamed_update_kernel(const T* w, int ldw, int vec_w, T* out, int ld, int vec,
+                          const int* info, const int* gather, int n, int k0) {
   constexpr int kLd = kB + kStreamPad;
   constexpr int kChunk = kStreamRows * kLd;
   constexpr int kNcw = kB / 8 / kColGroups;  // column blocks of 8 a warp
@@ -1233,9 +1301,8 @@ gj_streamed_update_kernel(const T* w, T* out, const int* info, const int* gather
   const int j0 = (jt < k0 / kB ? jt : jt + 1) * kB;
   const int wj = min(kB, n - j0);
   const int bk = min(kB, n - k0);
-  const long long nn = static_cast<long long>(n) * n;
-  const T* we = w + e * nn;
-  T* oe = out + e * nn;
+  const T* we = w + e * n * ldw;
+  T* oe = out + e * n * ld;
   const int tid = threadIdx.x;
   const int lane = tid % kWarp;
   const int warp = tid / kWarp;
@@ -1243,21 +1310,24 @@ gj_streamed_update_kernel(const T* w, T* out, const int* info, const int* gather
   const int t = lane & 3;
   const int r_lo = warp % kRowPairs * 16 + g;
   const int c0 = warp / kRowPairs * kNcw * 8;
-  const bool pairs = (n & 1) == 0;
+  // Two neighbouring entries in one store (16 bytes in f64): an even ld
+  // aligns them, and the second of a pair at the ragged edge of an odd n
+  // is the padding column.
+  const bool pairs = (ld & 1) == 0;
 
   for (int i = tid; i < n; i += kStreamThreads) src[i] = gather[e * n + i];
   __syncthreads();
   // Every row this block writes is read before its first store: the pivot
   // rows and the rows K here, the others in their own chunk.
-  stage_rows<T, kB>(pr, we, n, j0, wj, src + k0, 0, kB, bk, vec);
-  stage_rows<T, kB>(qr, we, n, j0, wj, nullptr, k0, kB, bk, vec);
+  stage_rows<T, kB>(pr, we, ldw, j0, wj, src + k0, 0, kB, bk, vec_w);
+  stage_rows<T, kB>(qr, we, ldw, j0, wj, nullptr, k0, kB, bk, vec_w);
   const int n_chunks = (n + kStreamRows - 1) / kStreamRows;
   auto request = [&](int c) {
     if (c < n_chunks) {
       T* stage = ring + (c % kStreamStages) * 2 * kChunk;
       const int i0 = c * kStreamRows;
-      stage_rows<T, kB>(stage, oe, n, k0, bk, nullptr, i0, kStreamRows, n - i0, vec);
-      stage_rows<T, kB>(stage + kChunk, we, n, j0, wj, nullptr, i0, kStreamRows, n - i0, vec);
+      stage_rows<T, kB>(stage, oe, ld, k0, bk, nullptr, i0, kStreamRows, n - i0, vec);
+      stage_rows<T, kB>(stage + kChunk, we, ldw, j0, wj, nullptr, i0, kStreamRows, n - i0, vec_w);
     }
     copy_async_commit();
   };
@@ -1295,7 +1365,7 @@ gj_streamed_update_kernel(const T* w, T* out, const int* info, const int* gather
     for (int h = 0; h < 2; ++h) {
       const int i = i0 + r_lo + 8 * h;
       if (i >= n) continue;
-      T* row = oe + static_cast<long long>(i) * n + j0;
+      T* row = oe + static_cast<long long>(i) * ld + j0;
 #pragma unroll
       for (int j = 0; j < kNcw; ++j) {
         const int col = c0 + 8 * j + 2 * t;
@@ -1320,11 +1390,13 @@ size_t streamed_unswap_bytes(int n, int warps) {
 
 // Column swaps of the streamed route: kUnswapRows rows of one matrix a
 // block, one row at a time a warp, through shared memory; column c of the
-// result is column j of the swept matrix where sigma[j] = c.  The block
+// result `out` (row stride n) is column j of the swept work matrix (row
+// stride ld; `out` itself where ld = n) where sigma[j] = c.  The block
 // has as many warps as rows of n fit beside the permutation (at most 4).
 template <typename T>
 __global__ void __launch_bounds__(kUnswapThreads)
-gj_streamed_unswap_kernel(T* out, const int* info, const int* sigma, int n) {
+gj_streamed_unswap_kernel(const T* work, int ld, T* out, const int* info, const int* sigma,
+                          int n) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int chunks = (n + kUnswapRows - 1) / kUnswapRows;
   const long long e = blockIdx.x / chunks;
@@ -1340,38 +1412,53 @@ gj_streamed_unswap_kernel(T* out, const int* info, const int* sigma, int n) {
   __syncthreads();
   const int i1 = min(i0 + kUnswapRows, n);
   for (int i = i0 + warp; i < i1; i += warps) {
-    T* row = out + e * n * n + static_cast<long long>(i) * n;
-    for (int j = lane; j < n; j += kWarp) buf[j] = row[j];
+    const T* swept = work + (e * n + i) * ld;
+    T* row = out + (e * n + i) * n;
+    for (int j = lane; j < n; j += kWarp) buf[j] = swept[j];
     __syncwarp();
     for (int c = lane; c < n; c += kWarp) row[c] = buf[col[c]];
     __syncwarp();
   }
 }
 
-// Shared memory of a panel launch: the row gather src.
+// Shared memory of a panel launch: the row gather src (dynamic), and the
+// step's arrays (static): one block's pivot row, row k, warp maxima and
+// block maximum, or a cluster's two sets of a candidate row a block, row
+// k, the block's warp maxima and the blocks' maxima.
 size_t streamed_panel_bytes(int n) { return (static_cast<size_t>(n) * sizeof(int) + 15) / 16 * 16; }
+
+template <typename T>
+size_t streamed_panel_static(int kb, bool cluster) {
+  const size_t sets = cluster ? 2 : 1;
+  const size_t block_slots = cluster ? kMaxCluster : 1;
+  return sets * ((block_slots + 1) * kb * sizeof(T) +
+                 (kBlockedWarps + block_slots) * (sizeof(T) + sizeof(int)));
+}
 
 // The whole streamed route for one call: ceil(n / kB) panel and update
 // launches, then the column swaps, on `stream`.  The panel launch has
 // `blocks` blocks per matrix, a cluster where that is above 1, and their
 // rows beyond their registers spill to L2.  scratch holds gather
-// [n_elem][n], then sigma [n_elem][n].  `limit`: the dynamic shared memory
-// a block may opt in to.
+// [n_elem][n], then sigma [n_elem][n].  The panels and updates sweep a
+// work matrix of row stride ld >= n: `out` itself where ld = n, else
+// `work` ([n_elem][n][ld], its columns past n never read as data), which
+// the column swaps then copy to `out`.  `limit`: the dynamic shared
+// memory a block may opt in to.
 template <typename T, int kRows, int kB>
-int launch_streamed(const T* a, T* out, int* info, int* scratch, int n_elem, int n, int blocks,
-                    size_t limit, cudaStream_t stream) {
+int launch_streamed(const T* a, T* out, T* work, int* info, int* scratch, int n_elem, int n,
+                    int blocks, int ld, size_t limit, cudaStream_t stream) {
   constexpr int kHeld = kRows * kBlockedThreads;
   // A cluster holds 32 columns (two rows of them a thread); no cluster
   // kernel is built for 16.
   constexpr bool kCluster = kB == kPanel;
   const int invalid = static_cast<int>(cudaErrorInvalidValue);
   if (blocks < 1 || blocks > kMaxCluster || (blocks > 1 && !kCluster)) return invalid;
+  if (ld < n || (ld > n && work == nullptr)) return invalid;
+  if (ld == n) work = out;
   const long long held = static_cast<long long>(blocks) * kHeld;
   const int spill = n > held ? static_cast<int>((n - held + blocks - 1) / blocks) : 0;
   const size_t panel_smem = streamed_panel_bytes(n);
-  // prow, oldk and the warp maxima of a whole cluster, at most
-  const size_t panel_static =
-      2 * kB * sizeof(T) + kMaxCluster * kBlockedWarps * (sizeof(T) + sizeof(int));
+  const size_t panel_static = streamed_panel_static<T>(kB, blocks > 1);
   const size_t update_smem = streamed_update_bytes<T>(kB, n);
   int unswap_warps = kUnswapThreads / kWarp;
   while (unswap_warps > 1 && streamed_unswap_bytes<T>(n, unswap_warps) > limit) unswap_warps /= 2;
@@ -1379,7 +1466,7 @@ int launch_streamed(const T* a, T* out, int* info, int* scratch, int n_elem, int
   if (panel_smem + panel_static > limit || update_smem > limit || unswap_smem > limit) {
     return invalid;
   }
-  void (*panel)(const T*, T*, int*, int*, int*, int, int, int, int) =
+  void (*panel)(const T*, int, T*, int, int*, int*, int*, int, int, int, int) =
       blocks > 1 ? (spill > 0 ? gj_streamed_panel_kernel<T, kRows, kB, kCluster, true>
                               : gj_streamed_panel_kernel<T, kRows, kB, kCluster, false>)
                  : (spill > 0 ? gj_streamed_panel_kernel<T, kRows, kB, false, true>
@@ -1401,9 +1488,11 @@ int launch_streamed(const T* a, T* out, int* info, int* scratch, int n_elem, int
   const long long en = static_cast<long long>(n_elem) * n;
   int* gather = scratch;
   int* sigma = scratch + en;
+  // Rows of 16-byte pieces: the work matrix's wherever ld is a multiple
+  // of 16 bytes (the wrapper's plans), the input's where n is.
   constexpr int kVec = 16 / sizeof(T);
-  const int vec = n % kVec == 0 && reinterpret_cast<uintptr_t>(a) % 16 == 0 &&
-                  reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  const int vec = ld % kVec == 0 && reinterpret_cast<uintptr_t>(work) % 16 == 0;
+  const int vec_a = n % kVec == 0 && reinterpret_cast<uintptr_t>(a) % 16 == 0;
   const int n_tiles = (n + kB - 1) / kB;
 
   cudaLaunchAttribute cluster;
@@ -1419,13 +1508,18 @@ int launch_streamed(const T* a, T* out, int* info, int* scratch, int n_elem, int
   config.attrs = &cluster;
   config.numAttrs = blocks > 1 ? 1 : 0;
   for (int k0 = 0; k0 < n; k0 += kB) {
-    const T* w = k0 == 0 ? a : out;
-    err = cudaLaunchKernelEx(&config, panel, w, out, info, gather, sigma, n, k0, blocks, spill);
+    // The first panel reads the input, the later ones the work matrix.
+    const T* w = k0 == 0 ? a : work;
+    const int ldw = k0 == 0 ? n : ld;
+    const int vec_w = k0 == 0 ? vec_a : vec;
+    err = cudaLaunchKernelEx(&config, panel, w, ldw, work, ld, info, gather, sigma, n, k0, blocks,
+                             spill);
     if (err == cudaSuccess) err = cudaGetLastError();
     if (err == cudaSuccess && n_tiles > 1) {
       const long long update_blocks = static_cast<long long>(n_elem) * (n_tiles - 1);
-      gj_streamed_update_kernel<T, kB><<<static_cast<unsigned>(update_blocks), kStreamThreads,
-                                         update_smem, stream>>>(w, out, info, gather, n, k0, vec);
+      gj_streamed_update_kernel<T, kB>
+          <<<static_cast<unsigned>(update_blocks), kStreamThreads, update_smem, stream>>>(
+              w, ldw, vec_w, work, ld, vec, info, gather, n, k0);
       err = cudaGetLastError();
     }
     if (err != cudaSuccess) return static_cast<int>(err);
@@ -1433,7 +1527,7 @@ int launch_streamed(const T* a, T* out, int* info, int* scratch, int n_elem, int
   const long long unswap_blocks =
       static_cast<long long>(n_elem) * ((n + kUnswapRows - 1) / kUnswapRows);
   gj_streamed_unswap_kernel<T><<<static_cast<unsigned>(unswap_blocks), unswap_warps * kWarp,
-                                 unswap_smem, stream>>>(out, info, sigma, n);
+                                 unswap_smem, stream>>>(work, ld, out, info, sigma, n);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1523,8 +1617,8 @@ int launch_register_for(const T* a, T* out, int* info, int n_elem, int n, int de
 // One call on the route the wrapper chose, after checking that the route
 // takes n on this device; cudaErrorInvalidValue where it does not.
 template <typename T>
-int launch(const void* a, void* out, int* info, int* scratch, int n_elem, int n, int route,
-           int panel, int blocks, void* stream) {
+int launch(const void* a, void* out, int* info, int* scratch, void* work, int n_elem, int n,
+           int route, int panel, int blocks, int ld, void* stream) {
   if (n_elem <= 0 || n <= 0) return 0;
   int device = 0;
   int optin = 0;
@@ -1547,12 +1641,12 @@ int launch(const void* a, void* out, int* info, int* scratch, int n_elem, int n,
       // Panel rows a thread holds: 32 entries in two rows, or 16 in four.
       if (scratch == nullptr) return invalid;
       if (panel == kPanel) {
-        return launch_streamed<T, 2, kPanel>(a_t, out_t, info, scratch, n_elem, n, blocks, limit,
-                                             s);
+        return launch_streamed<T, 2, kPanel>(a_t, out_t, static_cast<T*>(work), info, scratch,
+                                             n_elem, n, blocks, ld, limit, s);
       }
       if (panel == kPanel / 2) {
-        return launch_streamed<T, 4, kPanel / 2>(a_t, out_t, info, scratch, n_elem, n, blocks,
-                                                 limit, s);
+        return launch_streamed<T, 4, kPanel / 2>(a_t, out_t, static_cast<T*>(work), info, scratch,
+                                                 n_elem, n, blocks, ld, limit, s);
       }
       return invalid;
     default:
@@ -1566,16 +1660,17 @@ int launch(const void* a, void* out, int* info, int* scratch, int n_elem, int n,
 // 0 or the first zero or non-finite pivot k+1 of matrix e.  route: 0
 // register, 1 blocked, 2 streamed (panel: 32 or 16 columns; blocks: the
 // panel launch's blocks per matrix, 1 to 8, whose rows beyond their
-// registers spill to L2; scratch: 2 n_elem n ints).  Returns a CUDA error
-// code.
-extern "C" int mfv2d_gj_inverse_f64(const void* a, void* out, int* info, int* scratch,
-                                    int n_elem, int n, int route, int panel, int blocks,
+// registers spill to L2; scratch: 2 n_elem n ints; ld: the row stride of
+// the work matrix, n (in place in out) or more, with work n_elem n ld
+// entries).  Returns a CUDA error code.
+extern "C" int mfv2d_gj_inverse_f64(const void* a, void* out, int* info, int* scratch, void* work,
+                                    int n_elem, int n, int route, int panel, int blocks, int ld,
                                     void* stream) {
-  return launch<double>(a, out, info, scratch, n_elem, n, route, panel, blocks, stream);
+  return launch<double>(a, out, info, scratch, work, n_elem, n, route, panel, blocks, ld, stream);
 }
 
-extern "C" int mfv2d_gj_inverse_f32(const void* a, void* out, int* info, int* scratch,
-                                    int n_elem, int n, int route, int panel, int blocks,
+extern "C" int mfv2d_gj_inverse_f32(const void* a, void* out, int* info, int* scratch, void* work,
+                                    int n_elem, int n, int route, int panel, int blocks, int ld,
                                     void* stream) {
-  return launch<float>(a, out, info, scratch, n_elem, n, route, panel, blocks, stream);
+  return launch<float>(a, out, info, scratch, work, n_elem, n, route, panel, blocks, ld, stream);
 }

@@ -8,7 +8,10 @@ float64.
 - For tensors on the CPU it returns the plain version.
 - For CUDA tensors it launches ``csrc/gj_inverse.cu`` (built at first use,
   see :mod:`mfv2d_torch.ops.kernels._build`) on the current stream, or
-  raises.  There is no fallback.
+  raises.  There is no fallback.  On the streamed route (n >= 219) a call
+  whose rows are not a multiple of 16 bytes (odd n in f64) also allocates
+  an ``[E, n, ld]`` work matrix beside the output, ``E n ld`` entries: 687
+  MB at n=289, E=1024 and 152 MB at n=1089, E=16 in f64.
 - A zero or non-finite pivot raises ``torch.linalg.LinAlgError`` naming the
   first element at fault, as ``torch.linalg.inv`` does for a singular input.
 
@@ -68,6 +71,7 @@ class LaunchPlan(NamedTuple):
     panel_bytes: int = 0  # streamed: shared memory of a panel block, static included
     update_bytes: int = 0  # ... of an update block
     unswap_warps: int = 0  # ... rows the column swaps hold at once, one a warp
+    ld: int = 0  # streamed: row stride of the swept work matrix, n rounded up to 16 bytes
 
 
 def _round16(x: int) -> int:
@@ -78,13 +82,20 @@ def _streamed_plan(n: int, dtype: torch.dtype, panel: int, blocks: int) -> Launc
     """The streamed route at ``panel`` columns with ``blocks`` panel blocks
     a matrix, as ``launch_streamed`` in the .cu file lays it out: each block
     holds ``PANEL_ROWS[panel] * THREADS`` panel rows in registers and its
-    share of the rest in L2.  Raises ``ValueError`` where the update or the
-    column swaps do not fit in shared memory."""
+    share of the rest in L2.  The panels and updates sweep a work matrix
+    whose rows start 16 bytes apart (``ld``), so that every row moves in
+    16-byte pieces; where ``ld > n`` that is an ``[E, n, ld]`` buffer beside
+    the output.  Raises ``ValueError`` where the update or the column swaps
+    do not fit in shared memory."""
     size = torch.finfo(dtype).bits // 8
     held = blocks * PANEL_ROWS[panel] * THREADS
     spill = max(0, -(-(n - held) // blocks))
-    # src, then prow, oldk and the warp maxima of a whole cluster (keys and rows)
-    shared = _round16(4 * n) + 2 * panel * size + MAX_CLUSTER * (THREADS // 32) * (size + 4)
+    # src, then one block's pivot row, row k, warp maxima and block maximum
+    # (keys and rows), or a cluster's two sets of a candidate row a block,
+    # row k, the block's warp maxima and the blocks' maxima
+    sets, slots = (2, MAX_CLUSTER) if blocks > 1 else (1, 1)
+    step = (slots + 1) * panel * size + (THREADS // 32 + slots) * (size + 4)
+    shared = _round16(4 * n) + sets * step
     ld = panel + STREAM_PAD
     update = (2 * panel * ld + STREAM_STAGES * 2 * STREAM_ROWS * ld) * size + 4 * n
     warps = UNSWAP_WARPS
@@ -92,7 +103,9 @@ def _streamed_plan(n: int, dtype: torch.dtype, panel: int, blocks: int) -> Launc
         warps //= 2
     if max(shared, update, _round16(4 * n) + warps * n * size) > SMEM_LIMIT:
         raise ValueError(f"gj_inverse: n={n} does not fit the streamed route's shared memory.")
-    return LaunchPlan("streamed", panel, blocks, spill, shared, update, warps)
+    vec = 16 // size
+    ld = -(-n // vec) * vec
+    return LaunchPlan("streamed", panel, blocks, spill, shared, update, warps, ld)
 
 
 def route(n: int, dtype: torch.dtype) -> str:
@@ -125,9 +138,11 @@ def launch_plan(n: int, dtype: torch.dtype) -> LaunchPlan:
     streamed route's panels are 32 columns held in the registers of one
     block to n = 512, 16 to n = 1024 (four rows a thread), and 32 again
     above, over a cluster of ceil(n / 512) blocks (at most 8), whose rows
-    past 4,096 go to L2.  Raises ``ValueError`` past the streamed route's
-    largest n (19,370 in f64), where the column swaps' one row and the row
-    permutation no longer fit in shared memory."""
+    past 4,096 go to L2; its work matrix has rows ``ld`` entries apart, n
+    rounded up to 16 bytes (n + 1 for odd n in f64).  Raises
+    ``ValueError`` past the streamed route's largest n (19,370 in f64),
+    where the column swaps' one row and the row permutation no longer fit
+    in shared memory."""
     name = route(n, dtype)
     if name != "streamed":
         return LaunchPlan(name)
@@ -144,7 +159,7 @@ def library() -> ctypes.CDLL:
     lib = _build.load("gj_inverse")
     for suffix in _SUFFIX.values():
         fn = getattr(lib, f"mfv2d_gj_inverse_{suffix}")
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return lib
 
@@ -174,10 +189,13 @@ def gj_inverse(a: torch.Tensor) -> torch.Tensor:
         return out
     plan = launch_plan(n, a.dtype)
     info = torch.empty(n_elem, dtype=torch.int32, device=a.device)
-    # The streamed route's row gather and row permutation, per matrix.
-    scratch = None
+    # The streamed route's row gather and row permutation, per matrix, and
+    # its work matrix where the rows of ``out`` are not 16 bytes apart.
+    scratch = work = None
     if plan.route == "streamed":
         scratch = torch.empty((2, n_elem, n), dtype=torch.int32, device=a.device)
+        if plan.ld != n:
+            work = torch.empty((n_elem, n, plan.ld), dtype=a.dtype, device=a.device)
     fn = getattr(library(), f"mfv2d_gj_inverse_{_SUFFIX[a.dtype]}")
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
@@ -186,11 +204,13 @@ def gj_inverse(a: torch.Tensor) -> torch.Tensor:
             ctypes.c_void_p(out.data_ptr()),
             ctypes.c_void_p(info.data_ptr()),
             ctypes.c_void_p(None if scratch is None else scratch.data_ptr()),
+            ctypes.c_void_p(None if work is None else work.data_ptr()),
             n_elem,
             n,
             ROUTES.index(plan.route),
             plan.panel,
             plan.blocks,
+            plan.ld,
             ctypes.c_void_p(stream),
         )
     if rc != 0:

@@ -11,10 +11,13 @@ register route (:func:`implicit_gj_mirror`) hold their algebra against the
 plain version and the Pallas kernel (the streamed route's at n = 460 and
 520, at n = 1056 and 1089 with the clustered panel's 32 columns, and on the
 Navier-Stokes p=10 and p=16 blocks, the p=10 ones against the JAX
-package's blocks and f64 inverse), and the route rule and launch plan
-(``kernel.launch_plan``) are checked for every n to 4,096.
+package's blocks and f64 inverse; at odd n also swept, as the kernel
+sweeps it, in a work matrix of 16-byte rows with NaN padding), and the
+route rule and launch plan (``kernel.launch_plan``, with its row stride)
+are checked for every n to 4,096.
 """
 
+import functools
 import math
 
 import jax
@@ -65,7 +68,9 @@ def saddle_mix(n, seed):
     )
 
 
-def blocked_gj_mirror(a: torch.Tensor, b: int) -> tuple[torch.Tensor, torch.Tensor]:
+def blocked_gj_mirror(
+    a: torch.Tensor, b: int, ld: int | None = None
+) -> tuple[torch.Tensor, torch.Tensor]:
     """The blocked and streamed routes of ``csrc/gj_inverse.cu``, step by
     step, batched.
 
@@ -81,10 +86,18 @@ def blocked_gj_mirror(a: torch.Tensor, b: int) -> tuple[torch.Tensor, torch.Tens
 
     The streamed route reads a row i outside the panel's rows K only from
     its own row or from a row of K; the gather is checked for that here.
+
+    With ``ld`` the matrices are swept, as the streamed route sweeps them,
+    in a work matrix of ``ld >= n`` columns whose padding columns hold NaN:
+    a column tile that reaches past n reads zeros there (the staging's
+    copies stop at n) and may write them.
     """
     e, n, _ = a.shape
+    ld = n if ld is None else ld
     batch = torch.arange(e)[:, None]
-    w = a.clone()
+    w = torch.full((e, n, ld), math.nan, dtype=a.dtype)
+    w[:, :, :n] = a
+    data = torch.arange(ld) < n  # the columns that hold the matrix
     perm = torch.zeros((e, n), dtype=torch.long)
     info = torch.zeros(e, dtype=torch.long)
     for k0 in range(0, n, b):
@@ -118,7 +131,7 @@ def blocked_gj_mirror(a: torch.Tensor, b: int) -> tuple[torch.Tensor, torch.Tens
         assert torch.all((src == rows) | ((src >= k0) & (src < k1)) | ~outside)
         for j0 in range(0, n, b):
             if j0 != k0:
-                tile = w[:, :, j0 : j0 + b][batch, src]
+                tile = torch.where(data[j0 : j0 + b], w[:, :, j0 : j0 + b], 0.0)[batch, src]
                 pivot_rows = tile[:, k0:k1].clone()
                 tile[:, k0:k1] = 0.0
                 w[:, :, j0 : j0 + b] = tile + m @ pivot_rows
@@ -128,7 +141,7 @@ def blocked_gj_mirror(a: torch.Tensor, b: int) -> tuple[torch.Tensor, torch.Tens
         c_k = cols[:, k].clone()
         cols[:, k] = cols[batch[:, 0], pk]
         cols[batch[:, 0], pk] = c_k
-    return w.gather(2, cols[:, None, :].expand(e, n, n)), info
+    return w[:, :, :n].gather(2, cols[:, None, :].expand(e, n, n)), info
 
 
 def implicit_gj_mirror(a: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -260,6 +273,22 @@ def test_streamed_mirror_matches_plain(n, b):
     assert rel(inv, tprec.gj_inverse_plain(a).numpy()) <= 1e-10
 
 
+@pytest.mark.parametrize("n", [219, 289, 441, 1089])
+def test_streamed_mirror_on_padded_rows_is_bitwise_the_compact_one(n):
+    """The streamed route's odd n (its first, config 3's blocks, the
+    Navier-Stokes p=10 and p=16 blocks) swept at the plan's row stride,
+    with NaN in the padding columns: no NaN reaches the result, which is
+    bitwise the compact sweep's."""
+    plan = kernel.launch_plan(n, torch.float64)
+    assert plan.ld == n + 1
+    a = torch.tensor(saddle_mix(n, seed=n))[: 2 if n > 1000 else 4]
+    inv, info = blocked_gj_mirror(a, plan.panel)
+    padded, padded_info = blocked_gj_mirror(a, plan.panel, plan.ld)
+    assert torch.all(info == 0) and torch.equal(padded_info, info)
+    assert torch.equal(padded, inv)
+    assert rel(inv, tprec.gj_inverse_plain(a).numpy()) <= 1e-10
+
+
 def navier_stokes_blocks(mesh_n: int = 4, p: int = 10) -> torch.Tensor:
     """The element blocks of Navier-Stokes Re=10 on a mesh_n x mesh_n mesh
     at order p (n = (2p + 1)^2: 441 at p=10), assembled by the port on the
@@ -332,6 +361,17 @@ def test_streamed_mirror_reports_the_failing_pivot(b):
     assert info.tolist() == [0] * 5 + [18] + [0] * 2
 
 
+def panel_static_bytes(panel: int, blocks: int, size: int) -> int:
+    """The panel kernel's static arrays (streamed_panel_static in
+    csrc/gj_inverse.cu): one block's pivot row, row k, 8 warp maxima and
+    its maximum (keys and rows), or a cluster's two sets of a candidate row
+    for each of its 8 block slots, row k, 8 warp maxima and 8 block
+    maxima."""
+    if blocks == 1:
+        return 2 * panel * size + 9 * (size + 4)
+    return 2 * (9 * panel * size + 16 * (size + 4))
+
+
 def test_route_rule_covers_every_n():
     """Each n from 1 to 4,096 takes one route, the routes follow one another
     in the order register, blocked, streamed, every n from 219 on takes the
@@ -362,7 +402,7 @@ def test_route_rule_covers_every_n():
                 # streamed_panel_bytes and the panel kernel's static arrays,
                 # streamed_update_bytes, streamed_unswap_bytes
                 src = -(-4 * n // 16) * 16
-                static = 2 * plan.panel * size + 8 * 8 * (size + 4)
+                static = panel_static_bytes(plan.panel, plan.blocks, size)
                 assert plan.panel_bytes == src + static <= kernel.SMEM_LIMIT
                 ld = plan.panel + 4
                 update = (2 * plan.panel * ld + 3 * 2 * 32 * ld) * size + 4 * n
@@ -388,6 +428,38 @@ def test_route_rule_covers_every_n():
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_launch_plan_rows_are_16_bytes_apart(dtype):
+    """Every streamed n to 4,096 sweeps a work matrix whose rows start 16
+    bytes apart: ld >= n, ld rounds n up to 16 bytes (n itself where n x
+    size already is one, n + 1 for odd n in f64), and the extra device
+    memory is E n (ld - n) entries.  The stride moves nothing of the plan's
+    shared memory, so every launch still fits and the route still ends at
+    n = 19,370 in f64."""
+    size = 8 if dtype == torch.float64 else 4
+    vec = 16 // size
+    for n in range(1, 4097):
+        plan = kernel.launch_plan(n, dtype)
+        if plan.route != "streamed":
+            assert plan.ld == 0
+            continue
+        assert plan.ld * size % 16 == 0 and n <= plan.ld < n + vec
+        assert (plan.ld == n) == (n * size % 16 == 0)
+        if dtype == torch.float64:
+            assert plan.ld == n + n % 2
+        src = -(-4 * n // 16) * 16
+        assert plan.panel_bytes == src + panel_static_bytes(plan.panel, plan.blocks, size)
+        assert plan.update_bytes == (2 * plan.panel + 3 * 2 * 32) * (plan.panel + 4) * size + 4 * n
+        assert max(plan.panel_bytes, plan.update_bytes) <= kernel.SMEM_LIMIT
+        assert src + plan.unswap_warps * n * size <= kernel.SMEM_LIMIT
+    assert kernel.launch_plan(289, dtype).ld == (290 if size == 8 else 292)
+    assert kernel.launch_plan(1089, dtype).ld == (1090 if size == 8 else 1092)
+    if dtype == torch.float64:
+        assert kernel.launch_plan(19370, dtype).ld == 19370
+        with pytest.raises(ValueError, match="shared memory"):
+            kernel.launch_plan(19371, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 def test_launch_plan_spills_past_the_cluster(dtype):
     """Above n = 4,096 a cluster of eight blocks holds 4,096 panel rows in
     registers and each block keeps its share of the rest in L2, so the
@@ -404,7 +476,7 @@ def test_launch_plan_spills_past_the_cluster(dtype):
         assert (plan.route, plan.panel, plan.blocks) == ("streamed", 32, 8)
         assert 4096 + 8 * plan.spill >= n > 4096 + 8 * (plan.spill - 1)
         src = -(-4 * n // 16) * 16
-        assert plan.panel_bytes == src + 2 * 32 * size + 8 * 8 * (size + 4) <= kernel.SMEM_LIMIT
+        assert plan.panel_bytes == src + panel_static_bytes(32, 8, size) <= kernel.SMEM_LIMIT
     assert kernel.launch_plan(4097, dtype).spill == 1
     assert kernel.launch_plan(5000, dtype).spill == 113
     assert kernel.launch_plan(last, dtype).unswap_warps == 1
@@ -424,17 +496,38 @@ def test_blocked_mirror_matches_gj_inverse_pallas():
     assert rel(mine, ref) <= 5e-5
 
 
-@pytest.mark.parametrize("n, b", [(460, 32), (520, 16)])
-def test_streamed_mirror_matches_gj_inverse_pallas(n, b):
-    """test_blocked_mirror_matches_gj_inverse_pallas at streamed sizes, at
-    both panel widths; the TPU kernel pads n to 512 or 640 and takes two
+@functools.cache
+def pallas_streamed_case(n: int) -> tuple[np.ndarray, np.ndarray]:
+    """Four f32 matrices of size n and their inverses by gj_inverse_pallas
+    (interpret mode); the TPU kernel pads n to 512 or 640 and takes two
     levels."""
-    assert b == kernel.launch_plan(n, torch.float32).panel
     rng = np.random.default_rng(3)
     a = (rng.normal(size=(4, n, n)) + n * np.eye(n)).astype(np.float32)
     with jax.enable_x64(False):
         ref = np.asarray(gj_inverse_pallas(jnp.asarray(a), tile=4))
+    return a, ref
+
+
+@pytest.mark.parametrize("n, b", [(460, 32), (520, 16)])
+def test_streamed_mirror_matches_gj_inverse_pallas(n, b):
+    """test_blocked_mirror_matches_gj_inverse_pallas at streamed sizes, at
+    both panel widths."""
+    assert b == kernel.launch_plan(n, torch.float32).panel
+    a, ref = pallas_streamed_case(n)
     mine, info = blocked_gj_mirror(torch.tensor(a), b)
+    assert mine.dtype == torch.float32 and torch.all(info == 0)
+    assert rel(mine, ref) <= 5e-5
+
+
+@pytest.mark.parametrize("n, b", [(460, 32), (520, 16)])
+def test_padded_streamed_mirror_matches_gj_inverse_pallas(n, b):
+    """test_streamed_mirror_matches_gj_inverse_pallas swept in a work
+    matrix of 16-byte rows with 4 more columns (NaN) than n, so that the
+    last column tile reaches into the padding."""
+    ld = n + 4
+    assert ld * 4 % 16 == 0 and b == kernel.launch_plan(n, torch.float32).panel
+    a, ref = pallas_streamed_case(n)
+    mine, info = blocked_gj_mirror(torch.tensor(a), b, ld)
     assert mine.dtype == torch.float32 and torch.all(info == 0)
     assert rel(mine, ref) <= 5e-5
 
@@ -571,3 +664,28 @@ def test_kernel_matches_plain_on_card(dtype):
         singular[5, :, 17] = 0.0
         with pytest.raises(torch.linalg.LinAlgError, match="matrix 5 .* pivot 18 "):
             kernel.gj_inverse(singular)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_kernel_at_odd_n_matches_plain_on_card(dtype):
+    """The streamed route at odd n, where its work matrix is padded to
+    16-byte rows, and at the even n beside them, at an odd E (the odd
+    input matrices of an odd n start 8 bytes off 16); the rows reversed,
+    so that every panel swaps rows; a singular matrix at odd n."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    tol = 1e-10 if dtype == torch.float64 else 1e-3
+    for n in (219, 289, 290, 1025, 1089, 1090):
+        n_b = n // 3
+        a = torch.tensor(saddle_blocks(5, n - n_b, n_b, seed=n), device="cuda").to(dtype)
+        assert kernel.route(n, dtype) == "streamed"
+        for x in (a, a.flip(1).contiguous()):
+            out = kernel.gj_inverse(x)
+            torch.cuda.synchronize()
+            assert rel(out.cpu(), tprec.gj_inverse_plain(x).cpu().numpy()) <= tol, n
+        if n % 2:
+            singular = a.clone()
+            singular[3, :, 17] = 0.0
+            with pytest.raises(torch.linalg.LinAlgError, match="matrix 3 .* pivot 18 "):
+                kernel.gj_inverse(singular)

@@ -9,10 +9,13 @@ Builds copies of ``mfv2d_torch/csrc/gj_inverse.cu`` into
 ``build/mfv2d_torch/ablation/`` (one nvcc each, in parallel):
 
 - ``kernel``: the source as it is; each run hands its C entry point a
-  layout (route, panel width and panel blocks a matrix, whose rows beyond
-  their registers go to L2): ``launch_plan``'s
-  (``ops/kernels/gj_inverse.py``) or one forced here, so one library times
-  every route and layout at every n it takes;
+  layout (route, panel width, panel blocks a matrix, whose rows beyond
+  their registers go to L2, and the row stride of the swept work matrix):
+  ``launch_plan``'s (``ops/kernels/gj_inverse.py``) or one forced here, so
+  one library times every route and layout at every n it takes; the
+  stride n at odd n (``8-byte rows``) sweeps the output in place in
+  8-byte copies and single stores, as the route did before its work
+  matrix of 16-byte rows;
 - one copy per ``--baseline`` file, named after it: another source, for
   instance an earlier revision's
   (``git show cf75c8c:mfv2d_torch/csrc/gj_inverse.cu > build/cf75c8c.cu``).
@@ -21,14 +24,18 @@ Builds copies of ``mfv2d_torch/csrc/gj_inverse.cu`` into
   streamed route) runs on its own route; one that takes a route and a
   panel width but no panel blocks (before the clustered panel) runs on the
   streamed route at the plan's width, and is left out above n = 1024,
-  where its streamed route did not go;
+  where its streamed route did not go; one that takes no row stride
+  (before the work matrix) sweeps in place;
 - ``no-mma``: the streamed update's products cut out (its loads, copies
   and stores only): the pass floor;
 - ``no-sweep``: the streamed panel's pivot steps cut out (panel loads and
   stores, updates and column swaps only), so the time it loses is the
   sweep chain's;
 - ``launches-only``: every streamed kernel returns at once: the launches'
-  own cost.
+  own cost;
+- ``two-barrier``: the clustered panel's pivot step as it was before its
+  block barrier, two cluster barriers a step (the warp maxima of every
+  block to every block; then the rows p and k).
 
 Every copy but the cut ones computes the inverse and is held against
 ``torch.linalg.inv`` (1e-10 in f64, 1e-3 in f32).  For each case (n, E,
@@ -38,11 +45,17 @@ per call of ten calls back to back.  The cases:
 
 - n=1056 and 1089 (E=16, the p=16 Navier-Stokes batch) and n=2401 (E=4),
   f64: the panel layouts above n = 1024, each at its own width: the plan's
-  cluster of ceil(n / 512) blocks holding 32 columns in registers; one
-  block of 16 columns and two blocks of 32 columns, each with the rows
-  past 1,024 in L2; and the cut copies at the plan's layout;
+  cluster of ceil(n / 512) blocks holding 32 columns in registers; the
+  ``two-barrier`` copy; one block of 16 columns and two blocks of 32
+  columns, each with the rows past 1,024 in L2; and the cut copies at the
+  plan's layout;
 - n=460, E=1000 and n=441, E=16 (the phase-10 batch), f64: the streamed
   route against the baseline, panels of 16 columns, and the cut copies;
+- odd n beside the even n + 1, which takes as many panels: n=289 and 290
+  (E=1024, config 3's batch), 1089 and 1090 (E=16, with the large cases'
+  runs), and n=441 (E=16), f64: the plan's 16-byte rows against ``8-byte
+  rows`` and the cut copies; and the even n=320 (E=4096, config 5's fine
+  blocks, and E=256, phase 10's) against the baseline;
 - n=208 (E=4096 and 1000), 224, 240 and 256 (E=1000) in f64, and n=208
   and 224 (E=1000) in f32: the blocked route (which takes n <= 256)
   against the streamed one, the measurement behind the boundary between
@@ -55,7 +68,8 @@ per call of ten calls back to back.  The cases:
   panels) in place of the whole batch.
 
 ``--sizes`` keeps the cases of those n only.  A copy whose text no longer
-matches the source stops the script with the substitution that failed.
+matches the source stops the script with the substitution that failed
+(a copy replaces a text, or the source from one text up to another).
 """
 
 from __future__ import annotations
@@ -100,6 +114,177 @@ LAUNCHES_ONLY = [
     )
 ]
 STAGES_2 = [("constexpr int kStreamStages = 3;", "constexpr int kStreamStages = 2;")]
+# The clustered panel's step with two cluster barriers a step, as it was
+# before the block barrier: lane r of every warp stores the warp's maximum
+# in block r, each warp reduces all of them after the first barrier, and
+# the warps that hold the rows p and k store them into every block before
+# the second (regions of the source between two markers, replaced).
+TWO_BARRIER = [
+    (
+        "  // A cluster's step publishes into one of two sets",
+        "  int* src = reinterpret_cast<int*>(smem_raw);",
+        """  constexpr int kSlots = (kCluster ? kMaxCluster : 1) * kBlockedWarps;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ T prow[kB];  // the pivot row, raw and rotated
+  __shared__ T oldk[kB];  // row k before the swap, rotated
+  __shared__ T red_key[kSlots];  // the warp maxima of every block
+  __shared__ int red_idx[kSlots];
+""",
+    ),
+    (
+        "  // bk pivot steps, as in the blocked route, but with column k0 + t at",
+        "  // A ragged last panel rotates on, without arithmetic, until each column",
+        """  // bk pivot steps, each behind two barriers, as in the blocked route, but
+  // with column k0 + t at v[q][0] in step t: each step rotates a row left
+  // by one place, the eliminated column's new entry going to the last
+  // place, so that no register is indexed by t (no select tree).  The
+  // pivot row is broadcast raw and every thread scales by the pivot itself.
+  for (int t = 0; t < bk; ++t) {
+    const int k = k0 + t;
+    T key = T(-1);
+    int idx = n;
+#pragma unroll
+    for (int q = 0; q < kRows; ++q) {
+      const int i = row0 + tid + q * kBlockedThreads;
+      if (i >= k && i < n) take_max(key, idx, pivot_key(v[q][0]), i);
+    }
+    if constexpr (kSpill) {
+      for (int m = tid; m < count; m += kBlockedThreads) {
+        const T x = sp[static_cast<long long>(m) * ld + t];
+        if (first + m >= k) take_max(key, idx, pivot_key(x), first + m);
+      }
+    }
+    for (int off = kWarp / 2; off > 0; off /= 2) {
+      const T other_key = __shfl_xor_sync(0xffffffffu, key, off);
+      const int other_idx = __shfl_xor_sync(0xffffffffu, idx, off);
+      take_max(key, idx, other_key, other_idx);
+    }
+    // Lane b hands the warp's maximum to block b.
+    if (lane < nb) {
+      store_to<kCluster>(red_key + rank * kBlockedWarps + warp, key, lane);
+      store_to<kCluster>(red_idx + rank * kBlockedWarps + warp, idx, lane);
+    }
+    sync_all<kCluster>();
+    if constexpr (!kCluster) {
+      key = red_key[0];
+      idx = red_idx[0];
+#pragma unroll
+      for (int r = 1; r < kBlockedWarps; ++r) take_max(key, idx, red_key[r], red_idx[r]);
+    } else {  // up to 64 maxima: two a lane, then a butterfly
+      key = T(-1);
+      idx = n;
+      for (int r = lane; r < nb * kBlockedWarps; r += kWarp) {
+        take_max(key, idx, red_key[r], red_idx[r]);
+      }
+      for (int off = kWarp / 2; off > 0; off /= 2) {
+        const T other_key = __shfl_xor_sync(0xffffffffu, key, off);
+        const int other_idx = __shfl_xor_sync(0xffffffffu, idx, off);
+        take_max(key, idx, other_key, other_idx);
+      }
+    }
+    if (!(key > T(0) && key < T(INFINITY))) {  // the same in every thread of the cluster
+      if (rank == 0 && tid == 0) info[e] = k + 1;
+      return;
+    }
+    const int p = idx;
+    // The rows p and k, rotated as the register rows are, go to prow and
+    // oldk of every block: from the thread that holds them (one block), the
+    // warp that holds them (a cluster: one entry a lane, so that each lane
+    // stores `blocks` values) or, for a spilled row, the first kB threads.
+    if constexpr (!kCluster) {
+#pragma unroll
+      for (int q = 0; q < kRows; ++q) {
+        const int i = tid + q * kBlockedThreads;
+        if (i == p) {
+#pragma unroll
+          for (int j = 0; j < kB; ++j) prow[j] = v[q][j];
+        }
+        if (i == k) {
+#pragma unroll
+          for (int j = 0; j < kB; ++j) oldk[j] = v[q][j];
+        }
+      }
+    } else {
+#pragma unroll
+      for (int s = 0; s < 2; ++s) {
+        const int rel = (s == 0 ? p : k) - row0;
+        if (rel >= 0 && rel < kHeld && warp == rel % kBlockedThreads / kWarp) {
+          const int q_own = rel / kBlockedThreads;
+          T mine = T(0);
+#pragma unroll
+          for (int j = 0; j < kB; ++j) {
+            T x = v[0][j];
+#pragma unroll
+            for (int q = 1; q < kRows; ++q) x = q == q_own ? v[q][j] : x;
+            x = __shfl_sync(0xffffffffu, x, rel % kWarp);
+            if (lane == j) mine = x;
+          }
+          if (lane < kB) {
+            for (int b = 0; b < nb; ++b) store_to<kCluster>((s == 0 ? prow : oldk) + lane, mine, b);
+          }
+        }
+      }
+    }
+    if constexpr (kSpill) {
+#pragma unroll
+      for (int s = 0; s < 2; ++s) {
+        const int row = s == 0 ? p : k;
+        if (row >= first && row < first + count && tid < kB) {
+          const int c = (t + tid) & (kB - 1);
+          const T x = c < bk ? sp[static_cast<long long>(row - first) * ld + c] : T(0);
+          for (int b = 0; b < nb; ++b) store_to<kCluster>((s == 0 ? prow : oldk) + tid, x, b);
+        }
+      }
+    }
+    if (tid == 0) {
+      const int s_k = src[k];
+      src[k] = src[p];
+      src[p] = s_k;
+    }
+    sync_all<kCluster>();
+    const T inv_pivot = T(1) / prow[0];
+#pragma unroll
+    for (int q = 0; q < kRows; ++q) {
+      const int i = row0 + tid + q * kBlockedThreads;
+      if (i == k) {
+#pragma unroll
+        for (int j = 0; j + 1 < kB; ++j) v[q][j] = inv_pivot * prow[j + 1];
+        v[q][kB - 1] = inv_pivot;
+      } else if (i < n) {
+        if (i == p) {  // row p takes the old row k
+#pragma unroll
+          for (int j = 0; j < kB; ++j) v[q][j] = oldk[j];
+        }
+        const T f = v[q][0] * inv_pivot;
+#pragma unroll
+        for (int j = 0; j + 1 < kB; ++j) v[q][j] = fused_mul_add(-f, prow[j + 1], v[q][j + 1]);
+        v[q][kB - 1] = -f;
+      }
+    }
+    if constexpr (kSpill) {
+      // The spilled rows, in natural order: column c is entry (c - t) mod
+      // kB of the rotated rows.  Each is read and written by one thread.
+      for (int m = tid; m < count; m += kBlockedThreads) {
+        const int i = first + m;
+        T* r = sp + static_cast<long long>(m) * ld;
+        if (i == k) {
+          for (int c = 0; c < bk; ++c) {
+            r[c] = c == t ? inv_pivot : inv_pivot * prow[(c - t) & (kB - 1)];
+          }
+        } else {
+          const bool moved = i == p;  // row p takes the old row k
+          const T f = (moved ? oldk[0] : r[t]) * inv_pivot;
+          for (int c = 0; c < bk; ++c) {
+            const int j = (c - t) & (kB - 1);
+            r[c] = c == t ? -f : fused_mul_add(-f, prow[j], moved ? oldk[j] : r[c]);
+          }
+        }
+      }
+    }
+  }
+""",
+    ),
+]
 ROWS_64 = [
     (
         "constexpr int kStreamThreads = 128;\nconstexpr int kStreamRows = 32;",
@@ -115,31 +300,41 @@ COPIES = {
     "stages-2": STAGES_2,
     "rows-64": ROWS_64,
     "warps-2": WARPS_2,
+    "two-barrier": TWO_BARRIER,
 }
 CUT = ("no-mma", "no-sweep", "launches-only")
 
 # A run: (label, copy, layout of (n, dtype) as (route, panel columns,
-# panel blocks), matrices a call or None for the whole batch); "baseline"
-# stands for each --baseline copy.
+# panel blocks, row stride), matrices a call or None for the whole batch);
+# "baseline" stands for each --baseline copy.
+def _ld(n, dtype):  # n rounded up to 16 bytes
+    vec = 128 // torch.finfo(dtype).bits
+    return -(-n // vec) * vec
+
+
 def planned(n, dtype):
     plan = gj_inverse.launch_plan(n, dtype)
-    return plan.route, plan.panel, plan.blocks
+    return plan.route, plan.panel, plan.blocks, plan.ld
+
+
+def eight_byte_rows(n, dtype):  # the plan's layout, swept in place at stride n
+    return (*planned(n, dtype)[:3], n)
 
 
 def blocked(n, dtype):
-    return "blocked", 0, 1
+    return "blocked", 0, 1, 0
 
 
 def streamed(n, dtype):  # the streamed route's one-block layout, below its n too
-    return "streamed", 32 if n <= 512 else 16, 1
+    return "streamed", 32 if n <= 512 else 16, 1, _ld(n, dtype)
 
 
 def panel_16(n, dtype):
-    return "streamed", 16, 1
+    return "streamed", 16, 1, _ld(n, dtype)
 
 
 def two_blocks(n, dtype):
-    return "streamed", 32, 2
+    return "streamed", 32, 2, _ld(n, dtype)
 
 
 STREAMED = ("streamed", "kernel", streamed, None)
@@ -157,6 +352,8 @@ PARTS = [
 ]
 LARGE = [
     ("cluster (plan)", "kernel", planned, None),
+    ("two-barrier", "two-barrier", planned, None),
+    ("baseline", "baseline", planned, None),
     ("1 block b=16 +L2", "kernel", panel_16, None),
     ("2 blocks +L2", "kernel", two_blocks, None),
     ("no-mma", "no-mma", planned, None),
@@ -164,9 +361,25 @@ LARGE = [
     ("launches-only", "launches-only", planned, None),
 ]
 L2_WAVES = ("L2 waves", "kernel", planned, 25)
+ODD = [
+    ("16-byte rows", "kernel", planned, None),
+    ("8-byte rows", "kernel", eight_byte_rows, None),
+    ("baseline", "baseline", planned, None),
+    ("no-mma", "no-mma", planned, None),
+    ("no-sweep", "no-sweep", planned, None),
+]
+EVEN = [ODD[0], *ODD[2:]]
+ODD_CLUSTER = [*ODD[:3], LARGE[1], *LARGE[3:]]
+EVEN_CLUSTER = [ODD_CLUSTER[0], *ODD_CLUSTER[2:]]
 CASES = [
+    (289, 1024, torch.float64, ODD),
+    (290, 1024, torch.float64, EVEN),
+    (1089, 16, torch.float64, ODD_CLUSTER),
+    (1090, 16, torch.float64, EVEN_CLUSTER),
+    (441, 16, torch.float64, ODD),
+    (320, 4096, torch.float64, EVEN),
+    (320, 256, torch.float64, EVEN),
     (1056, 16, torch.float64, LARGE),
-    (1089, 16, torch.float64, LARGE),
     (2401, 4, torch.float64, LARGE),
     (460, 1000, torch.float64, [*PARTS, L2_WAVES]),
     (441, 16, torch.float64, PARTS),
@@ -186,10 +399,16 @@ def build(name: str, baselines: dict[str, Path]) -> tuple[ctypes.CDLL, int]:
         text = baselines[name].read_text()
     else:
         text = (_build.CSRC / "gj_inverse.cu").read_text()
-    for old, new in COPIES.get(name, []):
-        if text.count(old) != 1:
-            raise SystemExit(f"{name}: the source no longer holds {old!r}")
-        text = text.replace(old, new)
+    for *old, new in COPIES.get(name, []):
+        # (text, new), or (first, end, new): the text from first up to end
+        for mark in old:
+            if text.count(mark) != 1:
+                raise SystemExit(f"{name}: the source no longer holds {mark!r}")
+        first = text.index(old[0])
+        end = text.index(old[-1]) + (len(old[0]) if len(old) == 1 else 0)
+        if end < first:
+            raise SystemExit(f"{name}: {old[-1]!r} comes before {old[0]!r}")
+        text = text[:first] + new + text[end:]
     source = OUT / f"{name}.cu"
     source.write_text(text)
     target = OUT / f"lib{name}.so"
@@ -198,12 +417,14 @@ def build(name: str, baselines: dict[str, Path]) -> tuple[ctypes.CDLL, int]:
     if proc.returncode:
         raise SystemExit(f"{name}: nvcc failed\n{proc.stderr[-3000:]}")
     lib = ctypes.CDLL(str(target))
-    # The entry point's arguments after the pointers: (E, n), (E, n, route,
-    # panel) or (E, n, route, panel, blocks).
-    ints = 5 if "int panel, int blocks" in text else 4 if "int* scratch" in text else 2
+    # The entry point's arguments after the pointers (a, out, info, then
+    # scratch, then work): (E, n), (E, n, route, panel), (E, n, route,
+    # panel, blocks) or (E, n, route, panel, blocks, ld).
+    ints = (6 if "int blocks, int ld" in text else 5 if "int panel, int blocks" in text
+            else 4 if "int* scratch" in text else 2)
+    pointers = 3 if ints == 2 else 5 if ints == 6 else 4
     for fn in (lib.mfv2d_gj_inverse_f64, lib.mfv2d_gj_inverse_f32):
-        fn.argtypes = [ctypes.c_void_p] * (3 if ints == 2 else 4) + [ctypes.c_int] * ints
-        fn.argtypes += [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * pointers + [ctypes.c_int] * ints + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return lib, ints
 
@@ -281,6 +502,7 @@ def main() -> int:
         out = torch.empty_like(a)
         info = torch.empty(e, dtype=torch.int32, device="cuda")
         scratch = torch.empty((2, e, n), dtype=torch.int32, device="cuda")
+        work = torch.empty((e, n, _ld(n, dtype)), dtype=dtype, device="cuda")
         suffix = "f64" if dtype == torch.float64 else "f32"
         calls = 10 if e <= 16 else 1
         print(
@@ -293,14 +515,17 @@ def main() -> int:
             _, copy, plan_of, wave = run
             lib, ints = libs[copy]
             fn = getattr(lib, f"mfv2d_gj_inverse_{suffix}")
-            route, panel, blocks = plan_of(n, dtype)
-            layout = [gj_inverse.ROUTES.index(route), panel, blocks]
+            route, panel, blocks, ld = plan_of(n, dtype)
+            layout = [gj_inverse.ROUTES.index(route), panel, blocks, ld]
             step = wave or e
             for e0 in range(0, e, step):
                 count = min(step, e - e0)
                 ptrs = (a[e0:].data_ptr(), out[e0:].data_ptr(), info[e0:].data_ptr())
                 if ints == 2:
                     rc = fn(*ptrs, count, n, ctypes.c_void_p(stream))
+                elif ints == 6:
+                    rc = fn(*ptrs, scratch.data_ptr(), work[e0:].data_ptr(), count, n, *layout,
+                            ctypes.c_void_p(stream))
                 else:
                     rc = fn(*ptrs, scratch.data_ptr(), count, n, *layout[: ints - 2],
                             ctypes.c_void_p(stream))
