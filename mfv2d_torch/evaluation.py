@@ -59,6 +59,7 @@ from mfv2d_torch.ops.mass import (
     tensor_basis,
 )
 from mfv2d_torch.system import ElementFormSpecification
+from mfv2d_torch.transfer import to_device, to_host
 
 
 def check_device(device) -> torch.device:
@@ -107,9 +108,7 @@ class ElementBatch:
             corners_np = corners_np[None]
         # Host copy for the NumPy paths (static fields, forcing, output).
         self.corners_np = corners_np
-        self.corners = torch.tensor(
-            corners_np, dtype=torch.float64, device=self.device
-        )
+        self.corners = to_device(corners_np, self.device, torch.float64, copy=True)
         self.n_elements = corners_np.shape[0]
         self._jac = None
         self._mass: dict[tuple[int, bool], torch.Tensor] = {}
@@ -430,7 +429,7 @@ def evaluate_static_fields(batch: ElementBatch, field_keys: Sequence) -> dict:
                 f"Vector field {getattr(fn, '__name__', fn)} must return shape"
                 f" {(x.shape + (2,))}, got {vals.shape}."
             )
-        out[fn] = torch.as_tensor(vals, dtype=torch.float64, device=batch.device)
+        out[fn] = to_device(vals, batch.device, torch.float64)
     return out
 
 
@@ -641,7 +640,7 @@ def project_between(
 ) -> torch.Tensor:
     """L2-project full element DoF vectors ``[E, n_in]`` from ``batch_in``'s
     orders to ``batch_out``'s: ``[E, n_out]`` on the batches' device."""
-    dofs = torch.as_tensor(dofs, dtype=torch.float64, device=batch_in.device)
+    dofs = to_device(dofs, batch_in.device, torch.float64)
     projectors = compute_element_projector(form_spec, batch_in, batch_out)
     return _apply_projectors(form_spec, projectors, batch_in.orders, dofs)
 
@@ -653,7 +652,7 @@ def projection_roundtrip_error(
     dofs,
 ) -> torch.Tensor:
     """``dofs - P_up(P_down(dofs))``: the order-reduction error DoFs."""
-    dofs = torch.as_tensor(dofs, dtype=torch.float64, device=batch.device)
+    dofs = to_device(dofs, batch.device, torch.float64)
     down = project_between(form_spec, batch, batch_lower, dofs)
     back = compute_element_projector(form_spec, batch_lower, batch)
     return dofs - _apply_projectors(form_spec, back, batch_lower.orders, down)
@@ -677,7 +676,7 @@ def _reference_inclusion_cached(spec_items, orders_in, orders_out, device):
     off_out = form_spec.form_offsets(*orders_out)
     full = np.zeros((form_spec.total_size(*orders_out), form_spec.total_size(*orders_in)))
     for i, p in enumerate(projs):
-        full[off_out[i] : off_out[i + 1], off_in[i] : off_in[i + 1]] = p[0].cpu().numpy()
+        full[off_out[i] : off_out[i + 1], off_in[i] : off_in[i + 1]] = to_host(p[0])
     return full
 
 

@@ -32,6 +32,8 @@ from collections.abc import Callable, Hashable
 import numpy as np
 import torch
 
+from mfv2d_torch.transfer import to_device
+
 uploads = 0
 upload_bytes = 0
 # Every live Tables object, for resident_bytes and clear.
@@ -69,7 +71,7 @@ class Tables:
                 # GB at p=16).
                 tensor = torch.from_numpy(host).to(dtype)
             else:
-                tensor = torch.tensor(host, dtype=dtype, device=device)
+                tensor = to_device(host, device, dtype, copy=True)
             self._copies[key] = tensor
             uploads += 1
             upload_bytes += tensor.nbytes

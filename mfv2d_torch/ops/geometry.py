@@ -21,6 +21,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from mfv2d_torch.transfer import to_device
+
 
 def _tensor(v) -> torch.Tensor:
     # NumPy inputs are copied: the basis tables are read-only arrays.
@@ -28,7 +30,7 @@ def _tensor(v) -> torch.Tensor:
 
 
 def _as_like(v, like: torch.Tensor) -> torch.Tensor:
-    return _tensor(v).to(dtype=like.dtype, device=like.device)
+    return to_device(_tensor(v), like.device, like.dtype)
 
 
 def bilinear_interpolate(corner_vals, xi, eta):

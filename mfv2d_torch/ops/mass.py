@@ -28,6 +28,7 @@ import torch
 from mfv2d_torch.ops.basis import Basis2D, FemCache
 from mfv2d_torch.ops.device_tables import Tables
 from mfv2d_torch.ops.geometry import JacobianTerms, jacobian
+from mfv2d_torch.transfer import to_device
 
 
 @dataclass(frozen=True)
@@ -109,8 +110,8 @@ def as_like(arr, like: torch.Tensor) -> torch.Tensor:
     moved there (itself where it is there already).  For per-call data: a
     constant table comes from its owner's device tables."""
     if isinstance(arr, torch.Tensor):
-        return arr.to(dtype=like.dtype, device=like.device)
-    return torch.tensor(np.asarray(arr), dtype=like.dtype, device=like.device)
+        return to_device(arr, like.device, like.dtype)
+    return to_device(np.asarray(arr), like.device, like.dtype, copy=True)
 
 
 def batch_jacobian(tb: TensorBasis, corners) -> JacobianTerms:

@@ -20,6 +20,7 @@ from mfv2d_torch.kform import UnknownFormOrder
 from mfv2d_torch.ops.basis import Basis2D
 from mfv2d_torch.ops.quadrature import dlagrange1d, lagrange1d
 from mfv2d_torch.system import ElementFormSpecification
+from mfv2d_torch.transfer import to_device
 
 
 def evaluate_function_on_batch(batch: ElementBatch, function) -> np.ndarray:
@@ -61,7 +62,7 @@ def element_dual_dofs_batched(
     """
     tb = batch.tb
     jac = batch.jac
-    vals = torch.as_tensor(values, dtype=jac.det.dtype, device=jac.det.device)
+    vals = to_device(values, jac.det.device, jac.det.dtype)
     w = tb.tensor("w", jac.det)
     if order == UnknownFormOrder.FORM_ORDER_0:
         return (vals * w * jac.det) @ tb.tensor("b0", jac.det).T
@@ -120,7 +121,7 @@ def element_primal_dofs(
     dual = element_dual_dofs(order, batch, function)
     spec = ElementFormSpecification(("_primal", int(order)))
     return apply_mass(
-        spec, batch, torch.as_tensor(dual, device=batch.device), inverse=True
+        spec, batch, to_device(dual, batch.device), inverse=True
     )
 
 

@@ -60,6 +60,7 @@ from mfv2d_torch.solver.solve import (
     reconstruct_mesh_from_solution,
 )
 from mfv2d_torch.system import KFormSystem
+from mfv2d_torch.tracing import tracer
 from mfv2d_torch.vis import ReconstructedGrid
 
 
@@ -187,6 +188,26 @@ def solve_system_2d(
     ``refinement_settings`` the refined mesh, whose last grid carries the
     ``error_estimate`` and ``h_ref_cost_estimate`` cell data.
     """
+    with tracer.solve():
+        return _solve(
+            mesh, system_settings, solver_settings, time_settings, refinement_settings,
+            vms_settings, recon_order, print_residual, checkpoint_settings, device,
+        )
+
+
+def _solve(
+    mesh: Mesh,
+    system_settings: SystemSettings,
+    solver_settings: SolverSettings,
+    time_settings: TimeSettings | None,
+    refinement_settings,
+    vms_settings: VMSSettings | None,
+    recon_order: int | None,
+    print_residual: bool,
+    checkpoint_settings,
+    device,
+) -> tuple[Sequence[ReconstructedGrid], SolutionStatistics, Mesh]:
+    """:func:`solve_system_2d`'s work, inside its tracer solve."""
     _check_vms_settings(system_settings, vms_settings)
     system = system_settings.system
     constrained_forms = system_settings.constrained_forms
@@ -197,7 +218,6 @@ def solve_system_2d(
         freeze_unsteady_boundary_conditions,
     )
     from mfv2d_torch.kform import KExplicit, TimeDependent
-    from mfv2d_torch.tracing import tracer
 
     has_unsteady_bcs = any(
         isinstance(bc, BoundaryCondition2DUnsteady)
@@ -348,11 +368,10 @@ def solve_system_2d(
             time_carry_term = explicit_vec[time_carry_index_array]
 
     n_lagrange = int(lagrange_vec.size)
-    t_factor = time.perf_counter()
-    solver = _make_solver(
-        solver_settings, disc, evaluator, matrices, lagrange_mat, n_lagrange
-    )
-    tracer.add("factorize", time.perf_counter() - t_factor)
+    with tracer.stage("factorize"):
+        solver = _make_solver(
+            solver_settings, disc, evaluator, matrices, lagrange_mat, n_lagrange
+        )
 
     sg_operator = None
     if vms_settings is not None:
@@ -401,7 +420,8 @@ def solve_system_2d(
         start_index = state["time_index"]
 
     # The first grid shows the state the solve starts from, at its time.
-    grid = reconstruct_mesh_from_solution(disc, recon_order, solution)
+    with tracer.stage("reconstruct"):
+        grid = reconstruct_mesh_from_solution(disc, recon_order, solution)
     grid.field_data["time"] = np.array(
         [start_index * time_settings.dt if time_settings is not None else 0.0]
     )
@@ -450,7 +470,8 @@ def solve_system_2d(
                 rtol, max_mag, time_settings.sample_rate, **extra,
             )
         for s_i, time_index in enumerate(sample_steps):
-            grid = reconstruct_mesh_from_solution(disc, recon_order, us[s_i])
+            with tracer.stage("reconstruct"):
+                grid = reconstruct_mesh_from_solution(disc, recon_order, us[s_i])
             grid.field_data["time"] = np.array([(int(time_index) + 1) * dt])
             resulting_grids.append(grid)
         solution = us[-1]
@@ -490,11 +511,10 @@ def solve_system_2d(
                     else forcing
                 )
                 max_mag = float(np.abs(explicit_vec).max())
-                t_refactor = time.perf_counter()
-                solver = _make_solver(
-                    solver_settings, disc, evaluator, matrices, lagrange_mat, n_lagrange
-                )
-                tracer.add("factorize", time.perf_counter() - t_refactor)
+                with tracer.stage("factorize"):
+                    solver = _make_solver(
+                        solver_settings, disc, evaluator, matrices, lagrange_mat, n_lagrange
+                    )
             elif rebuild_each_step and (time_index > 0 or has_td_rhs):
                 # Re-evaluate time-dependent boundary values / forcing at the
                 # new time level; the constraint matrix itself is
@@ -586,9 +606,10 @@ def solve_system_2d(
                 )
 
             if (time_index % time_settings.sample_rate) == 0 or time_index + 1 == nt:
-                grid = reconstruct_mesh_from_solution(
-                    disc, recon_order, solution, _vms_to_coarse(sg_operator, fine_scales, disc)
-                )
+                with tracer.stage("reconstruct"):
+                    grid = reconstruct_mesh_from_solution(
+                        disc, recon_order, solution, _vms_to_coarse(sg_operator, fine_scales, disc)
+                    )
                 grid.field_data["time"] = np.array([t_next])
                 resulting_grids.append(grid)
 
@@ -647,11 +668,12 @@ def solve_system_2d(
                 steady_save(iter_cnt, solution, global_lagrange, fine_scales, final=True)
         changes = np.asarray(all_residuals)[:iter_cnt]
         iters = np.array((iter_cnt,), np.uint32)
-        resulting_grids.append(
-            reconstruct_mesh_from_solution(
-                disc, recon_order, solution, _vms_to_coarse(sg_operator, fine_scales, disc)
+        with tracer.stage("reconstruct"):
+            resulting_grids.append(
+                reconstruct_mesh_from_solution(
+                    disc, recon_order, solution, _vms_to_coarse(sg_operator, fine_scales, disc)
+                )
             )
-        )
     tracer.add("solve+reconstruct", time.perf_counter() - t_solve)
 
     mesh_orders = disc.element_orders
@@ -709,8 +731,6 @@ def solve_system_2d(
             print(order_hist.format(geo_order))
             print("=" * 60)
 
-    if tracer.enabled:
-        print(tracer.report())
     return tuple(resulting_grids), stats, output_mesh
 
 
@@ -762,7 +782,6 @@ def _solve_sharded(
     solution on its own device.
     """
     from mfv2d_torch.parallel import sharding
-    from mfv2d_torch.tracing import tracer
 
     system = system_settings.system
     comm = sharding.trace_comm(solver_settings.device_mesh)
@@ -945,8 +964,6 @@ def _solve_sharded(
         tracer.add("refinement", time.perf_counter() - t_refine)
         grids[-1].cell_data["error_estimate"] = error_estimates
         grids[-1].cell_data["h_ref_cost_estimate"] = h_ref_cost
-    if tracer.enabled:
-        print(tracer.report())
     return tuple(grids), stats, output_mesh
 
 

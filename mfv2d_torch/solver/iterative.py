@@ -55,6 +55,8 @@ from mfv2d_torch.ops.kernels.gj_inverse import gj_inverse
 from mfv2d_torch.ops.precision import choose_refine_rounds
 from mfv2d_torch.solver.discretization import Discretization
 from mfv2d_torch.solver.solve import ConvergenceSettings
+from mfv2d_torch.tracing import tracer
+from mfv2d_torch.transfer import to_device, to_host
 from mfv2d_torch.utils.lazy import lazy_module
 
 sp = lazy_module("scipy.sparse")
@@ -106,8 +108,6 @@ class BlockSaddleSystem:
         device=None,
         min_refine_rounds: int = 0,
     ) -> None:
-        from mfv2d_torch.tracing import tracer
-
         self.disc = disc
         self.n_dofs = disc.n_dofs
         self.lagrange_mat = lagrange_mat
@@ -119,20 +119,12 @@ class BlockSaddleSystem:
         # refinement rounds each apply runs (normally zero).
         self.inverses = []
         self._refine_rounds = []
-        for i, b in enumerate(self.blocks):
+        for b in self.blocks:
             inv = gj_inverse(b)
-            rounds, err = choose_refine_rounds(b, inv)
-            rounds = max(rounds, min_refine_rounds)
+            rounds, _ = choose_refine_rounds(b, inv)
             self.inverses.append(inv)
-            self._refine_rounds.append(rounds)
-            if tracer.enabled:
-                print(
-                    f"[trace] saddle bucket {i}: rounds={rounds} probe_err={err:.2e}",
-                    flush=True,
-                )
-        self.gathers = [
-            torch.as_tensor(b.gather, device=self.device) for b in disc.buckets
-        ]
+            self._refine_rounds.append(max(rounds, min_refine_rounds))
+        self.gathers = [to_device(b.gather, self.device) for b in disc.buckets]
         # Bucket gathers partition [0, n_dofs); the inverse permutation maps
         # each global DoF to its position in the bucket-concatenated flat
         # vector, so block results assemble with a gather.
@@ -142,13 +134,13 @@ class BlockSaddleSystem:
             g = np.asarray(b.gather).reshape(-1)
             inv_perm[g] = off + np.arange(g.size)
             off += g.size
-        self._inv_perm = torch.as_tensor(inv_perm, device=self.device)
+        self._inv_perm = to_device(inv_perm, self.device)
 
         if lagrange_mat is not None:
             coo = lagrange_mat.tocoo()
             self.n_lagrange = lagrange_mat.shape[0]
-            self.g_rows = torch.as_tensor(coo.row.astype(np.int64), device=self.device)
-            self.g_cols = torch.as_tensor(coo.col.astype(np.int64), device=self.device)
+            self.g_rows = to_device(coo.row.astype(np.int64), self.device)
+            self.g_cols = to_device(coo.col.astype(np.int64), self.device)
             self.g_vals = self._tensor(coo.data)
             # Both trace products are stored as zero-padded gathers:
             # row-major ([n_lag, k1]: G x) and column-major ([n_dofs, k2]:
@@ -169,9 +161,7 @@ class BlockSaddleSystem:
 
     def _tensor(self, values) -> torch.Tensor:
         """``values`` as a contiguous f64 tensor on the system's device."""
-        return torch.as_tensor(
-            values, dtype=torch.float64, device=self.device
-        ).contiguous()
+        return to_device(values, self.device, torch.float64).contiguous()
 
     def _padded_table(self, indptr, indices, data, n_rows):
         counts = np.diff(indptr)
@@ -182,7 +172,7 @@ class BlockSaddleSystem:
         out_val = np.zeros((n_rows, k))
         out_idx[row_ids, slots] = indices
         out_val[row_ids, slots] = data
-        return torch.as_tensor(out_idx, device=self.device), self._tensor(out_val)
+        return to_device(out_idx, self.device), self._tensor(out_val)
 
     # -- block-diagonal operators --------------------------------------
 
@@ -312,7 +302,7 @@ class BlockSaddleSystem:
                 sol = _schur_rhs_solve(
                     inv[c0:c1], blocks[c0:c1], ge_c.transpose(1, 2), rounds
                 )
-                se = (ge_c @ sol).cpu().numpy()
+                se = to_host(ge_c @ sol)
                 mask = valid[c0:c1, :, None] & valid[c0:c1, None, :]
                 se_full[c0:c1] = np.where(mask, se, 0.0)
             out.append((se_full, rows_pad, valid))
@@ -330,7 +320,9 @@ class BlockSaddleSystem:
         rows_acc: list[np.ndarray] = []
         cols_acc: list[np.ndarray] = []
         vals_acc: list[np.ndarray] = []
-        for se_full, rows_pad, valid in self._condensed_buckets():
+        with tracer.stage("condense"):
+            buckets = self._condensed_buckets()
+        for se_full, rows_pad, valid in buckets:
             mask = valid[:, :, None] & valid[:, None, :]
             rows_full = np.broadcast_to(rows_pad[:, :, None], se_full.shape)
             cols_full = np.broadcast_to(rows_pad[:, None, :], se_full.shape)
@@ -347,10 +339,13 @@ class BlockSaddleSystem:
         return sp.csr_array(s.tocsr())
 
     def schur_decomposition(self):
-        """Cached host SuperLU factorization of the assembled Schur complement."""
+        """Cached host SuperLU factorization of the assembled Schur complement
+        (traced: ``condense``, the sparse assembly, then ``superlu``)."""
         decomp = getattr(self, "_schur_decomp", None)
         if decomp is None:
-            decomp = sla.splu(sp.csc_matrix(self.assemble_schur_sparse()))
+            schur = sp.csc_matrix(self.assemble_schur_sparse())
+            with tracer.stage("superlu"):
+                decomp = sla.splu(schur)
             self._schur_decomp = decomp
         return decomp
 
@@ -591,14 +586,12 @@ def solve_schur_direct(
     on the host and every subsequent solve is two triangular sweeps plus
     batched element inverse applies on the device.
     """
-    from mfv2d_torch.tracing import tracer
-
     with tracer.stage("schur-factor"):
         decomp = system.schur_decomposition()
     with tracer.stage("inv-apply"):
         inv_a_b = system.apply_diagonal_inverse(system._tensor(rhs))
         trace_rhs = system.apply_trace(inv_a_b) - system._tensor(constraints)
-        trace_rhs = trace_rhs.cpu().numpy()
+        trace_rhs = to_host(trace_rhs)
     with tracer.stage("trace-solve"):
         lam = system._tensor(decomp.solve(trace_rhs))
     with tracer.stage("inv-apply"):
@@ -734,7 +727,7 @@ class IterativeSaddleSolver:
             u, lam, _, _ = solve_gmres_iterative(self.system, b, c, self.convergence)
         else:
             u, lam, _, _ = solve_pcg_iterative(self.system, b, c, self.convergence)
-        return torch.cat([u, lam]).cpu().numpy()
+        return to_host(torch.cat([u, lam]))
 
 
 def assemble_dense_saddle(
@@ -777,10 +770,10 @@ class DenseSaddleSolver:
         )
         self.device = disc.buckets[0].batch.device
         self._lu, self._piv = torch.linalg.lu_factor(
-            torch.as_tensor(mat, dtype=torch.float64, device=self.device)
+            to_device(mat, self.device, torch.float64)
         )
 
     def solve(self, rhs: np.ndarray) -> np.ndarray:
-        b = torch.as_tensor(rhs, dtype=torch.float64, device=self.device)
+        b = to_device(rhs, self.device, torch.float64)
         x = torch.linalg.lu_solve(self._lu, self._piv, b[:, None])[:, 0]
-        return x.cpu().numpy()
+        return to_host(x)

@@ -39,6 +39,8 @@ from mfv2d_torch.progress import ProgressTracker
 from mfv2d_torch.projection import element_dual_dofs
 from mfv2d_torch.solver.discretization import Discretization, OrderBucket, per_leaf
 from mfv2d_torch.system import ElementFormSpecification, KFormSystem
+from mfv2d_torch.tracing import tracer
+from mfv2d_torch.transfer import to_device, to_host
 from mfv2d_torch.utils.lazy import lazy_module
 from mfv2d_torch.vis import VTK_LAGRANGE_QUADRILATERAL, ReconstructedGrid
 
@@ -186,7 +188,7 @@ _JACOBIAN_CHUNK_BYTES = 1 << 30
 
 
 def _to_device(values: np.ndarray, bucket: OrderBucket) -> torch.Tensor:
-    return torch.as_tensor(values, dtype=torch.float64, device=bucket.batch.device)
+    return to_device(values, bucket.batch.device, torch.float64)
 
 
 def warm_masses(batch, *block_sets) -> None:
@@ -275,7 +277,7 @@ class SystemEvaluator:
                 dofs=dofs,
                 static_fields=self._static_fields[i],
             )
-            out.append(mats.cpu().numpy())
+            out.append(to_host(mats))
         return out
 
     def bucket_residual(self, i_bucket: int, dofs: torch.Tensor) -> torch.Tensor:
@@ -296,7 +298,7 @@ class SystemEvaluator:
         out = np.zeros(self.disc.n_dofs)
         for i, bucket in enumerate(self.disc.buckets):
             dofs = _to_device(solution[bucket.gather], bucket)
-            out[bucket.gather] = self.bucket_residual(i, dofs).cpu().numpy()
+            out[bucket.gather] = to_host(self.bucket_residual(i, dofs))
         return out
 
     def bucket_jacobians(self, i_bucket: int, dofs: torch.Tensor) -> torch.Tensor:
@@ -315,9 +317,7 @@ class SystemEvaluator:
         solution-dependent interior-product fields.
         """
         return [
-            self.bucket_jacobians(i, _to_device(solution[bucket.gather], bucket))
-            .cpu()
-            .numpy()
+            to_host(self.bucket_jacobians(i, _to_device(solution[bucket.gather], bucket)))
             for i, bucket in enumerate(self.disc.buckets)
         ]
 
@@ -365,7 +365,8 @@ def compute_linear_system(
 class FrozenSaddleSolver:
     """LU factorization of [[A, G^T], [G, 0]] reused across iterations.
 
-    A is block-diagonal over elements.  Host SciPy SuperLU.
+    A is block-diagonal over elements.  Host SciPy SuperLU.  Traced as
+    ``saddle-matrix`` (the sparse saddle matrix, to CSC) and ``superlu``.
     """
 
     def __init__(
@@ -373,13 +374,16 @@ class FrozenSaddleSolver:
         element_matrices_per_leaf: list[np.ndarray],
         lagrange_mat: sp.csr_array | None,
     ) -> None:
-        main_mat = sp.block_diag(element_matrices_per_leaf, format="csr")
-        if lagrange_mat is not None:
-            main_mat = sp.block_array(
-                ((main_mat, lagrange_mat.T), (lagrange_mat, None)), format="csr"
-            )
+        with tracer.stage("saddle-matrix"):
+            main_mat = sp.block_diag(element_matrices_per_leaf, format="csr")
+            if lagrange_mat is not None:
+                main_mat = sp.block_array(
+                    ((main_mat, lagrange_mat.T), (lagrange_mat, None)), format="csr"
+                )
+            main_mat = sp.csc_matrix(main_mat)
         self.n_lagrange = 0 if lagrange_mat is None else lagrange_mat.shape[0]
-        self._decomp = sla.splu(sp.csc_matrix(main_mat))
+        with tracer.stage("superlu"):
+            self._decomp = sla.splu(main_mat)
 
     def solve(self, rhs: np.ndarray) -> np.ndarray:
         return np.asarray(self._decomp.solve(rhs), np.float64)
@@ -503,8 +507,6 @@ def non_linear_solve_run(
     last residual, or every iteration's with ``return_all_residuals``, and
     the unresolved scales (``fine_scales`` where there is no operator).
     """
-    from mfv2d_torch.tracing import tracer
-
     progress_tracker: ProgressTracker | None = None
     iter_cnt = 0
     # Anderson acceleration (type II) over the damped-Picard fixed point
@@ -663,15 +665,13 @@ def compute_element_dual_from_primal_global(
     """Apply the per-form mass matrices to the whole solution vector."""
     out = np.zeros_like(primal)
     for bucket in disc.buckets:
-        out[bucket.gather] = (
+        out[bucket.gather] = to_host(
             apply_mass(
                 disc.form_spec,
                 bucket.batch,
                 _to_device(primal[bucket.gather], bucket),
                 inverse=False,
             )
-            .cpu()
-            .numpy()
         )
     return out
 
@@ -682,15 +682,13 @@ def compute_element_primal_from_dual_global(
     """Apply the per-form inverse mass matrices to the whole vector."""
     out = np.zeros_like(dual)
     for bucket in disc.buckets:
-        out[bucket.gather] = (
+        out[bucket.gather] = to_host(
             apply_mass(
                 disc.form_spec,
                 bucket.batch,
                 _to_device(dual[bucket.gather], bucket),
                 inverse=True,
             )
-            .cpu()
-            .numpy()
         )
     return out
 
@@ -802,7 +800,7 @@ def reconstruct_mesh_from_solution(
                     bucket,
                 )
                 m = bucket.batch.mass(order, False)
-                vdofs = torch.linalg.solve(m, vdofs[..., None])[..., 0].cpu().numpy()
+                vdofs = to_host(torch.linalg.solve(m, vdofs[..., None])[..., 0])
                 vvals = reconstruct_batched(corners, basis, order, vdofs, xi, eta)
                 vms_vals[name] = np.reshape(vvals, shape)
 
