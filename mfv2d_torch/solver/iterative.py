@@ -340,12 +340,17 @@ class BlockSaddleSystem:
 
     def schur_decomposition(self):
         """Cached host SuperLU factorization of the assembled Schur complement
-        (traced: ``condense``, the sparse assembly, then ``superlu``)."""
+        (traced: ``condense``, the sparse assembly, then ``superlu``, which
+        counts the column ordering it took, :func:`trace_column_ordering`)."""
         decomp = getattr(self, "_schur_decomp", None)
         if decomp is None:
             schur = sp.csc_matrix(self.assemble_schur_sparse())
             with tracer.stage("superlu"):
-                decomp = sla.splu(schur)
+                permc_spec = trace_column_ordering(schur)
+                tracer.count(
+                    "superlu_min_degree" if permc_spec == "MMD_AT_PLUS_A" else "superlu_colamd"
+                )
+                decomp = sla.splu(schur, permc_spec=permc_spec)
             self._schur_decomp = decomp
         return decomp
 
@@ -365,6 +370,27 @@ class BlockSaddleSystem:
             0, self.g_rows, contrib
         )
         return torch.where(diag_s > 0, diag_s, 1.0)
+
+
+def trace_column_ordering(schur) -> str:
+    """SuperLU's ``permc_spec`` for the assembled trace matrix S.
+
+    S = sum_e G_e A_e^{-1} G_e^T scatters each element's dense block onto
+    the same rows and columns, so its pattern is symmetric, and a minimum
+    degree ordering of A^T + A fits it.  That ordering pays only while the
+    row pivots stay on the diagonal, as they do where S is definite: 64x64
+    p=8 mixed Poisson (S negative definite) leaves 24.3 M non-zeros in L + U
+    against COLAMD's 65.9 M.  An indefinite S pivots off its diagonal, and
+    there the minimum degree ordering fills more than COLAMD (16x16 p=8
+    Stokes 18.1 M against 7.6 M, 12x12 p=5 Navier-Stokes 5.1 M against
+    1.5 M).  So S takes it only where its diagonal, read in O(n), has one
+    strict sign, as a definite matrix's has; a zero or both signs there
+    (Stokes, Navier-Stokes, a saddle block) keep SciPy's default, COLAMD.
+    Row pivoting stays at SciPy's default threshold either way.
+    """
+    diagonal = schur.diagonal()
+    definite_sign = bool(np.all(diagonal > 0) or np.all(diagonal < 0))
+    return "MMD_AT_PLUS_A" if definite_sign else "COLAMD"
 
 
 # ---------------------------------------------------------------------------

@@ -25,7 +25,9 @@ While the tracer is on:
 - :meth:`Tracer.count` adds to a counter, per name and per innermost open
   span: ``solves`` (one a ``solve_system_2d`` call), ``h2d_bytes`` and
   ``d2h_bytes`` (the explicit host-device copies, made through
-  :mod:`mfv2d_torch.transfer`).
+  :mod:`mfv2d_torch.transfer`), ``superlu_min_degree`` and
+  ``superlu_colamd`` (the trace Schur factorizations by the column ordering
+  each took, :func:`mfv2d_torch.solver.iterative.trace_column_ordering`).
 
 :meth:`Tracer.reset` clears the totals, spans and counters.  Off, a stage
 or a count costs one attribute check.

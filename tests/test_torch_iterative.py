@@ -13,6 +13,8 @@ import importlib
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import scipy.sparse as sp
+import scipy.sparse.linalg as sla
 import torch
 
 import mfv2d_torch as tf
@@ -21,6 +23,7 @@ from mfv2d_torch.ops.basis import FemCache as TFemCache
 from mfv2d_torch.solver import iterative as ti
 from mfv2d_torch.solver.discretization import discretize_mesh as t_discretize
 from mfv2d_torch.solver.solve import ConvergenceSettings as TConv
+from mfv2d_torch.tracing import tracer
 from mfv2d_tpu.compiler import CompiledSystem
 from mfv2d_tpu.models import flow as jflow
 from mfv2d_tpu.models import poisson as jpoisson
@@ -313,6 +316,105 @@ def test_navier_stokes_schur_direct_matches_jax(monkeypatch):
     )
     assert int(jstats.iter_history[-1]) == int(tstats.iter_history[-1]) == 18
     assert rel(tsol, jsol) <= 1e-10
+
+
+def _port_trace_system(system, n: int, p: int) -> ti.BlockSaddleSystem:
+    """The port's BlockSaddleSystem of a linear ``system`` on an n x n mesh
+    at order p, on the CPU, with no boundary condition or constraint."""
+    from mfv2d_torch.compiler import CompiledSystem as TCompiled
+    from mfv2d_torch.solver.solve import (
+        SystemEvaluator as TEvaluator,
+        compute_linear_system as t_linear_system,
+    )
+
+    disc = t_discretize(
+        tf.examples.unit_square_mesh(n, n, p), system.unknown_forms, TFemCache(2), device="cpu"
+    )
+    evaluator = TEvaluator(disc.form_spec, TCompiled(system), disc)
+    _, matrices, g, _ = t_linear_system(disc, system, evaluator, [], [], None)
+    return ti.BlockSaddleSystem(disc, matrices, g)
+
+
+def _fill(matrix, permc_spec: str) -> tuple:
+    lu = sla.splu(matrix, permc_spec=permc_spec)
+    return lu, lu.L.nnz + lu.U.nnz
+
+
+def _ordering_of_mixed_poisson_16x16_p8(monkeypatch):
+    # S is negative definite: the minimum degree ordering, with less fill
+    # (0.58x COLAMD's) and the same solution.
+    system = _port_trace_system(tpoisson.mixed_poisson().system, 16, 8)
+    schur = sp.csc_matrix(system.assemble_schur_sparse())
+    assert ti.trace_column_ordering(schur) == "MMD_AT_PLUS_A"
+    min_degree, min_degree_fill = _fill(schur, "MMD_AT_PLUS_A")
+    colamd, colamd_fill = _fill(schur, "COLAMD")
+    assert min_degree_fill <= 0.7 * colamd_fill, (min_degree_fill, colamd_fill)
+    b = np.random.default_rng(5).normal(size=schur.shape[0])
+    assert rel(min_degree.solve(b), colamd.solve(b)) <= 1e-12
+    # The system's own factorization is the one with that ordering.
+    assert np.array_equal(system.schur_decomposition().perm_c, min_degree.perm_c)
+
+
+def _ordering_of_a_zero_diagonal_saddle(monkeypatch):
+    # [[A, B^T], [B, 0]]: a structural zero on the diagonal keeps COLAMD.
+    rng = np.random.default_rng(6)
+    m = rng.normal(size=(8, 8))
+    b = rng.normal(size=(3, 8))
+    saddle = sp.csc_matrix(
+        sp.block_array([[sp.csr_array(m @ m.T + 8 * np.eye(8)), sp.csr_array(b.T)],
+                        [sp.csr_array(b), None]])
+    )
+    assert saddle.diagonal()[8:].tolist() == [0.0] * 3
+    assert ti.trace_column_ordering(saddle) == "COLAMD"
+
+
+def _ordering_of_stokes_4x4_p8(monkeypatch):
+    # Config 3's Stokes trace: symmetric in value and pattern, no zero on
+    # the diagonal, but indefinite (diagonal of both signs): partial
+    # pivoting leaves the diagonal and the minimum degree ordering fills
+    # more than COLAMD, which it keeps.
+    system = _port_trace_system(tflow.stokes_flow(with_divergence=False).system, 4, 8)
+    schur = sp.csc_matrix(system.assemble_schur_sparse())
+    diagonal = schur.diagonal()
+    assert np.all(diagonal != 0) and diagonal.min() < 0 < diagonal.max()
+    assert ti.trace_column_ordering(schur) == "COLAMD"
+    _, min_degree_fill = _fill(schur, "MMD_AT_PLUS_A")
+    colamd, colamd_fill = _fill(schur, "COLAMD")
+    assert colamd_fill < min_degree_fill, (colamd_fill, min_degree_fill)
+    assert np.array_equal(system.schur_decomposition().perm_c, colamd.perm_c)
+
+
+def _ordering_of_navier_stokes_4x4_p5(monkeypatch):
+    # Unsymmetric in value, diagonal of both signs: COLAMD, counted once a
+    # factorization, and the solve still the JAX package's.
+    jsol, _ = _solve_capturing(jf, jsolve_mod, monkeypatch, *_navier_stokes_4x4(jf, jflow))
+    tracer.reset()
+    tracer.enable()
+    try:
+        tsol, _ = _solve_capturing(tf, tsolve_mod, monkeypatch, *_navier_stokes_4x4(tf, tflow))
+        factorizations = sum(
+            calls for path, (calls, _) in tracer.stages.items() if path.endswith("/superlu")
+        )
+        counts = (tracer.total("superlu_min_degree"), tracer.total("superlu_colamd"))
+    finally:
+        tracer.disable()
+        tracer.reset()
+    assert factorizations >= 1 and counts == (0, factorizations)
+    assert rel(tsol, jsol) <= 1e-10
+
+
+@pytest.mark.parametrize(
+    "case",
+    [
+        _ordering_of_mixed_poisson_16x16_p8,
+        _ordering_of_a_zero_diagonal_saddle,
+        _ordering_of_stokes_4x4_p8,
+        _ordering_of_navier_stokes_4x4_p5,
+    ],
+    ids=["mixed_poisson_16x16_p8", "zero_diagonal_saddle", "stokes_4x4_p8", "navier_stokes_4x4_p5"],
+)
+def test_trace_column_ordering_follows_the_diagonal(case, monkeypatch):
+    case(monkeypatch)
 
 
 def test_golden_fixture_through_schur_direct():

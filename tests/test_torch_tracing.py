@@ -104,6 +104,29 @@ def test_children_of_the_factorizations(fresh_tracer):
         assert sum(stages[f"{parent}/{c}"][1] for c in children) <= stages[parent][1]
 
 
+@pytest.mark.parametrize(
+    "linear_solver, counts",
+    [
+        # The trace matrix of mixed Poisson is definite: one factorization,
+        # by the minimum degree ordering, counted under its span.
+        ("schur_direct", {"picard-solve/schur-factor/superlu": {"superlu_min_degree": 1}}),
+        # The saddle matrix's factorization does not choose an ordering.
+        ("direct", {}),
+    ],
+)
+def test_superlu_orderings_are_counted(fresh_tracer, linear_solver, counts):
+    fresh_tracer.enable()
+    _solve(linear_solver)
+    fresh_tracer.disable()
+    names = ("superlu_min_degree", "superlu_colamd")
+    seen = {
+        path: {k: v for k, v in at.items() if k in names}
+        for path, at in fresh_tracer.counters.items()
+        if any(k in names for k in at)
+    }
+    assert seen == counts
+
+
 def test_an_off_tracer_records_nothing(fresh_tracer):
     _solve("direct")
     with fresh_tracer.stage("outside"):
