@@ -487,137 +487,143 @@ def _solve(
             else None
         )
         for time_index in range(start_index, nt):
-            t_next = (time_index + 1) * dt
-            if has_td_fields:
-                # TimeDependent OPERATOR fields: re-evaluate the field at the
-                # new time level, re-assemble the frozen element matrices,
-                # forcing and constraint values, and refactorize.
-                TimeDependent.current_time = t_next
-                evaluator.refresh_static_fields()
-                bcs_t = (
-                    freeze_unsteady_boundary_conditions(
+            with tracer.stage("march-step"):
+                tracer.count("march_steps")
+                t_next = (time_index + 1) * dt
+                if has_td_fields:
+                    # TimeDependent OPERATOR fields: re-evaluate the field at the
+                    # new time level, re-assemble the frozen element matrices,
+                    # forcing and constraint values, and refactorize.
+                    TimeDependent.current_time = t_next
+                    evaluator.refresh_static_fields()
+                    bcs_t = (
+                        freeze_unsteady_boundary_conditions(
+                            system_settings.boundary_conditions or [], t_next
+                        )
+                        if has_unsteady_bcs
+                        else (boundary_conditions or [])
+                    )
+                    with tracer.stage("assembly+constraints"):
+                        forcing, matrices, _, lagrange_vec_t = compute_linear_system(
+                            disc, system, evaluator, constrained_forms, bcs_t, solution
+                        )
+                    explicit_vec = (
+                        np.concatenate((forcing, lagrange_vec_t))
+                        if lagrange_mat is not None
+                        else forcing
+                    )
+                    max_mag = float(np.abs(explicit_vec).max())
+                    with tracer.stage("factorize"):
+                        solver = _make_solver(
+                            solver_settings, disc, evaluator, matrices, lagrange_mat, n_lagrange
+                        )
+                elif rebuild_each_step and (time_index > 0 or has_td_rhs):
+                    # Re-evaluate time-dependent boundary values / forcing at the
+                    # new time level; the constraint matrix itself is
+                    # time-independent.
+                    from mfv2d_torch.continuity import add_system_constraints
+
+                    if has_td_rhs:
+                        TimeDependent.current_time = t_next
+                    frozen = freeze_unsteady_boundary_conditions(
                         system_settings.boundary_conditions or [], t_next
                     )
-                    if has_unsteady_bcs
-                    else (boundary_conditions or [])
-                )
-                with tracer.stage("assembly+constraints"):
-                    forcing, matrices, _, lagrange_vec_t = compute_linear_system(
-                        disc, system, evaluator, constrained_forms, bcs_t, solution
+                    forcing_t = (
+                        compute_forcing_vector(disc, system)
+                        if has_td_rhs
+                        else pure_forcing.copy()
                     )
-                explicit_vec = (
-                    np.concatenate((forcing, lagrange_vec_t))
-                    if lagrange_mat is not None
-                    else forcing
-                )
-                max_mag = float(np.abs(explicit_vec).max())
-                with tracer.stage("factorize"):
-                    solver = _make_solver(
-                        solver_settings, disc, evaluator, matrices, lagrange_mat, n_lagrange
+                    vec_views = [
+                        forcing_t[disc.element_offsets[i] : disc.element_offsets[i + 1]]
+                        for i in range(disc.n_leaves)
+                    ]
+                    _, lagrange_vec_t = add_system_constraints(
+                        system,
+                        mesh,
+                        basis_cache,
+                        constrained_forms,
+                        frozen,
+                        disc.leaf_indices,
+                        disc.element_offsets,
+                        vec_views,
                     )
-            elif rebuild_each_step and (time_index > 0 or has_td_rhs):
-                # Re-evaluate time-dependent boundary values / forcing at the
-                # new time level; the constraint matrix itself is
-                # time-independent.
-                from mfv2d_torch.continuity import add_system_constraints
+                    explicit_vec = (
+                        np.concatenate((forcing_t, lagrange_vec_t))
+                        if lagrange_mat is not None
+                        else forcing_t
+                    )
+                    max_mag = float(np.abs(explicit_vec).max())
+                current_carry = 2 / dt * old_solution_carry + time_carry_term
 
-                if has_td_rhs:
-                    TimeDependent.current_time = t_next
-                frozen = freeze_unsteady_boundary_conditions(
-                    system_settings.boundary_conditions or [], t_next
-                )
-                forcing_t = (
-                    compute_forcing_vector(disc, system)
-                    if has_td_rhs
-                    else pure_forcing.copy()
-                )
-                vec_views = [
-                    forcing_t[disc.element_offsets[i] : disc.element_offsets[i + 1]]
-                    for i in range(disc.n_leaves)
-                ]
-                _, lagrange_vec_t = add_system_constraints(
-                    system,
-                    mesh,
-                    basis_cache,
-                    constrained_forms,
-                    frozen,
-                    disc.leaf_indices,
-                    disc.element_offsets,
-                    vec_views,
-                )
-                explicit_vec = (
-                    np.concatenate((forcing_t, lagrange_vec_t))
-                    if lagrange_mat is not None
-                    else forcing_t
-                )
-                max_mag = float(np.abs(explicit_vec).max())
-            current_carry = 2 / dt * old_solution_carry + time_carry_term
-
-            (
-                solution,
-                global_lagrange,
-                iter_cnt,
-                max_residual,
-                fine_scales,
-            ) = non_linear_solve_run(
-                max_iterations,
-                relax,
-                atol,
-                rtol,
-                print_residual,
-                evaluator,
-                explicit_vec,
-                solution,
-                global_lagrange,
-                max_mag,
-                solver,
-                lagrange_mat,
-                anderson_m=solver_settings.anderson_m,
-                time_carry_index_array=time_carry_index_array,
-                time_carry_term=current_carry,
-                newton=newton,
-                fine_scales=fine_scales,
-                sg_operator=sg_operator,
-            )
-            changes[time_index] = float(max_residual)
-            iters[time_index] = iter_cnt
-
-            projected = compute_element_dual_from_primal_global(disc, solution)
-            new_solution_carry = projected[time_carry_index_array]
-            time_carry_term = (
-                2 / dt * (new_solution_carry - old_solution_carry) - time_carry_term
-            )
-            old_solution_carry = new_solution_carry
-
-            if checkpoint_settings is not None and (
-                (time_index + 1) % checkpoint_settings.every == 0 or time_index + 1 == nt
-            ):
-                from mfv2d_torch.checkpoint import save_march_state
-
-                save_march_state(
-                    checkpoint_settings.path,
-                    mesh,
+                (
                     solution,
                     global_lagrange,
-                    old_solution_carry,
-                    time_carry_term,
-                    time_index + 1,
-                    dt,
+                    iter_cnt,
+                    max_residual,
+                    fine_scales,
+                ) = non_linear_solve_run(
+                    max_iterations,
+                    relax,
+                    atol,
+                    rtol,
+                    print_residual,
+                    evaluator,
+                    explicit_vec,
+                    solution,
+                    global_lagrange,
+                    max_mag,
+                    solver,
+                    lagrange_mat,
+                    anderson_m=solver_settings.anderson_m,
+                    time_carry_index_array=time_carry_index_array,
+                    time_carry_term=current_carry,
+                    newton=newton,
+                    fine_scales=fine_scales,
+                    sg_operator=sg_operator,
                 )
+                changes[time_index] = float(max_residual)
+                iters[time_index] = iter_cnt
 
-            if (time_index % time_settings.sample_rate) == 0 or time_index + 1 == nt:
-                with tracer.stage("reconstruct"):
-                    grid = reconstruct_mesh_from_solution(
-                        disc, recon_order, solution, _vms_to_coarse(sg_operator, fine_scales, disc)
+                with tracer.stage("carry"):
+                    projected = compute_element_dual_from_primal_global(disc, solution)
+                    new_solution_carry = projected[time_carry_index_array]
+                    time_carry_term = (
+                        2 / dt * (new_solution_carry - old_solution_carry) - time_carry_term
                     )
-                grid.field_data["time"] = np.array([t_next])
-                resulting_grids.append(grid)
+                    old_solution_carry = new_solution_carry
 
-            if print_residual:
-                print(
-                    f"Time step {time_index:d} finished in {iter_cnt:d} iterations"
-                    f" with residual of {float(max_residual):.5e}"
-                )
+                if checkpoint_settings is not None and (
+                    (time_index + 1) % checkpoint_settings.every == 0 or time_index + 1 == nt
+                ):
+                    from mfv2d_torch.checkpoint import save_march_state
+
+                    save_march_state(
+                        checkpoint_settings.path,
+                        mesh,
+                        solution,
+                        global_lagrange,
+                        old_solution_carry,
+                        time_carry_term,
+                        time_index + 1,
+                        dt,
+                    )
+
+                if (time_index % time_settings.sample_rate) == 0 or time_index + 1 == nt:
+                    with tracer.stage("reconstruct"):
+                        grid = reconstruct_mesh_from_solution(
+                            disc,
+                            recon_order,
+                            solution,
+                            _vms_to_coarse(sg_operator, fine_scales, disc),
+                        )
+                    grid.field_data["time"] = np.array([t_next])
+                    resulting_grids.append(grid)
+
+                if print_residual:
+                    print(
+                        f"Time step {time_index:d} finished in {iter_cnt:d} iterations"
+                        f" with residual of {float(max_residual):.5e}"
+                    )
     else:
         if fused:
             # Steady solve on the device: Picard with the frozen LU, or

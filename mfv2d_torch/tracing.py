@@ -27,7 +27,11 @@ While the tracer is on:
   ``d2h_bytes`` (the explicit host-device copies, made through
   :mod:`mfv2d_torch.transfer`), ``superlu_min_degree`` and
   ``superlu_colamd`` (the trace Schur factorizations by the column ordering
-  each took, :func:`mfv2d_torch.solver.iterative.trace_column_ordering`).
+  each took, :func:`mfv2d_torch.solver.iterative.trace_column_ordering`),
+  ``march_steps`` (one a step of a trapezoidal march on the host loop,
+  counted inside its ``march-step`` span; the step's residuals, update
+  solves and reconstruction sit under that span, and its carry projection
+  and update in ``march-step/carry``).
 
 :meth:`Tracer.reset` clears the totals, spans and counters.  Off, a stage
 or a count costs one attribute check.
