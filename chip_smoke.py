@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (mfv2d_torch) on one CUDA GPU.
 
-Run from the repository root:  python3 chip_smoke.py [--probe [inverse|mass|hp|vms|parallel|gallery]]
+Run from the repository root:  python3 chip_smoke.py [--probe [inverse|mass|hp|vms|parallel|gallery|trsv]]
 
   --probe         phases 0, 1 and 6 only: build the kernels and hold the
                   batched inverse's routes against torch.linalg.inv, with
@@ -18,14 +18,17 @@ Run from the repository root:  python3 chip_smoke.py [--probe [inverse|mass|hp|v
                   it compares with run again for their results
   --probe gallery  phases 0, 1, 18 and 18b only: the port's example
                   gallery and BASELINE config 3 on the card
+  --probe trsv    phases 0 and 1, phase 12's 64x64 p=4 heat march, and
+                  12b: the frozen LU's sweeps on the card against their
+                  plain version, SciPy and the library, with their times
 
 Phases (each ends in torch.cuda.synchronize(); any failure exits non-zero):
 
 0. card, power limit, torch/CUDA/nvcc versions; exit 1 without a GPU
-1. build both kernels (csrc/mass_edge.cu, csrc/gj_inverse.cu) for sm_90a,
-   one nvcc each, started together; ptxas's registers and spills, and a
-   failure if the register route of gj_inverse spills or a panel kernel
-   has a stack frame
+1. build the kernels (csrc/mass_edge.cu, csrc/gj_inverse.cu,
+   csrc/sn_trsv.cu) for sm_90a, one nvcc each, started together; ptxas's
+   registers and spills, and a failure if the register route of gj_inverse
+   spills or a panel kernel has a stack frame
 2. M1 kernel vs its plain PyTorch version on the card, f64 and f32, at
    orders on both sides of the 176 KB at which the basis table stops being
    resident in shared memory and is streamed (to p=16, and anisotropic),
@@ -77,7 +80,20 @@ Phases (each ends in torch.cuda.synchronize(); any failure exits non-zero):
    then its first 4 steps again, warm, under torch.profiler); the fused
    dense linear march of the JAX bench's heat cell (16x16, p=4, 64 steps);
    and the lid-driven cavity on 16x16, p=4 by the fused dense Picard march
-   and the fused dense Newton march, with iterations per step
+   and the fused dense Newton march, with iterations per step.  The heat
+   march's frozen solves after its first run on the card (sn_trsv): its
+   launches are counted from 0 for that march and must be the launches of
+   one solve times its card solves and the one run before the graph's
+   capture
+12b. the frozen LU of phase 12's heat march (n = 261,632) on the card:
+   its sweeps (csrc/sn_trsv.cu) held against their plain version
+   (supernodal.solve_plain, one right side) and SciPy's SuperLU (three) to
+   1e-12, two solves of one right side bitwise equal; the schedule's build
+   again with its time and its peak device memory beside the schedule's
+   size; the median times of a solve on the card (graph replay, and the
+   host's wall with the copies), of SciPy's and of torch.triangular_solve
+   on the factors as sparse CSR (the library call), beside the bound (each
+   non-zero's value read once)
 13. the inverse's clustered panel and M1's panel route on a model:
    steady Navier-Stokes Re=10, 4x4 mesh, p=16, linear_solver="schur_direct"
    (element blocks n=1089, M1 at E=16), its Picard iterations against the
@@ -306,18 +322,18 @@ def phase0_device() -> None:
 
 
 def phase1_build() -> None:
-    from mfv2d_torch.ops.kernels import _build, gj_inverse, mass_edge
+    from mfv2d_torch.ops.kernels import _build, gj_inverse, mass_edge, supernodal
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=2) as pool:
-        builds = [pool.submit(k.library) for k in (mass_edge, gj_inverse)]
+    with ThreadPoolExecutor(max_workers=3) as pool:
+        builds = [pool.submit(k.library) for k in (mass_edge, gj_inverse, supernodal)]
         for build in builds:
             build.result()
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    print(f"phase 1: built mass_edge.cu and gj_inverse.cu in {seconds:.2f} s")
+    print(f"phase 1: built mass_edge.cu, gj_inverse.cu and sn_trsv.cu in {seconds:.2f} s")
     register_entries = []
-    for name in ("mass_edge", "gj_inverse"):
+    for name in ("mass_edge", "gj_inverse", "sn_trsv"):
         entry = ""
         for line in _build.build_logs.get(name, "").splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
@@ -1376,29 +1392,46 @@ def _heat_steady(x, y):
     return np.cos(np.pi * x / 2) * np.cos(np.pi * y / 2)
 
 
-def _heat_march(n: int, p: int, linear_solver: str, nt: int = HEAT_NT):
+def _heat_march(n: int, p: int, linear_solver: str, nt: int = HEAT_NT, solvers=None):
+    """BASELINE config 2's march on the card, M1's and sn_trsv's launch
+    counters and the tracer reset for it (the tracer's counts are read after
+    it); each frozen solver it makes is appended to the list ``solvers``."""
     import mfv2d_torch as mf
     from mfv2d_torch.models import transport
-    from mfv2d_torch.ops.kernels import mass_edge
+    from mfv2d_torch.ops.kernels import mass_edge, supernodal
+    from mfv2d_torch.solver.solve import FrozenSaddleSolver
     from mfv2d_torch.tracing import tracer
+
+    system_module = importlib.import_module("mfv2d_torch.solve_system_2d")
+
+    class Recording(FrozenSaddleSolver):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            solvers.append(self)
 
     model = transport.heat_mixed(HEAT_ALPHA, HEAT_BETA, _heat_steady)
     mesh = mf.examples.unit_square_mesh(n, n, p)
     mass_edge.launches = 0
+    supernodal.launches = 0
+    if solvers is not None:
+        system_module.FrozenSaddleSolver = Recording
     tracer.enable()
     tracer.reset()
     t0 = time.perf_counter()
-    grids, stats, _ = mf.solve_system_2d(
-        mesh,
-        mf.SystemSettings(model.system),
-        mf.SolverSettings(mf.ConvergenceSettings(20, 1e-10, 0), linear_solver=linear_solver),
-        time_settings=mf.TimeSettings(
-            dt=HEAT_T_END / HEAT_NT, nt=nt,
-            time_march_relations=model.time_march_relations,
-        ),
-        recon_order=p,
-        device="cuda",
-    )
+    try:
+        grids, stats, _ = mf.solve_system_2d(
+            mesh,
+            mf.SystemSettings(model.system),
+            mf.SolverSettings(mf.ConvergenceSettings(20, 1e-10, 0), linear_solver=linear_solver),
+            time_settings=mf.TimeSettings(
+                dt=HEAT_T_END / HEAT_NT, nt=nt,
+                time_march_relations=model.time_march_relations,
+            ),
+            recon_order=p,
+            device="cuda",
+        )
+    finally:
+        system_module.FrozenSaddleSolver = FrozenSaddleSolver
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     tracer.disable()
@@ -1482,26 +1515,54 @@ def _linear_heat_march(nt: int = LINEAR_HEAT_NT, checkpoint_settings=None):
     return stats, err, wall, mass_edge.launches, grids[-1]
 
 
-def phase12_marches() -> dict:
-    import mfv2d_torch as mf
-    from mfv2d_torch.models import flow
-    from mfv2d_torch.ops.kernels import mass_edge
+# Phase 12's heat march's frozen solver and its sweeps' launches, which
+# phase 12b reads (and releases).
+HEAT_SOLVER: dict = {}
 
-    launches = {}
-    stats, err, wall, count, stages, grids = _heat_march(64, 4, "direct")
+
+def _p12_heat_direct() -> int:
+    """Phase 12's heat march by "direct", its frozen solver kept for phase
+    12b; returns M1's launches."""
+    from mfv2d_torch.ops.kernels import supernodal
+    from mfv2d_torch.tracing import tracer
+
+    solvers: list = []
+    stats, err, wall, count, stages, grids = _heat_march(64, 4, "direct", solvers=solvers)
+    sweeps = supernodal.launches
+    host, card = tracer.total("frozen_solve_host"), tracer.total("frozen_solve_card")
     REFERENCES["phase 12 heat"] = (grids, err)
     print(
         f"phase 12: heat march (BASELINE config 2) 64x64 p=4 direct: {stats.n_total_dofs}"
         f" unknowns, {HEAT_NT} steps of dt={HEAT_T_END / HEAT_NT}, iterations per"
         f" step {stats.iter_history.tolist()}, L2 point error at t={HEAT_T_END}"
-        f" {err:.3e}, wall {wall:.3f} s, mass_edge launches {count}"
+        f" {err:.3e}, wall {wall:.3f} s, mass_edge launches {count}; frozen solves"
+        f" {host} on the host and {card} on the card, sn_trsv launches {sweeps}"
     )
     for name, (calls, total) in sorted(stages.items(), key=lambda kv: -kv[1][1]):
         print(f"  stage {name:28s} {total:9.4f} s ({calls} calls)")
-    _require_launches(12, mass_edge=count)
-    launches["heat 64x64 direct"] = count
+    _require_launches(12, mass_edge=count, sn_trsv=sweeps)
     if not err <= 1e-3:
         raise RuntimeError(f"heat march error {err:.3e} > 1e-3")
+    if len(solvers) != 1 or solvers[0]._card is None:
+        raise RuntimeError(f"the heat march made {len(solvers)} frozen solvers, none on the card")
+    # The card's solves, and the one run outside the graph that loads the
+    # kernel before the graph is captured.
+    per_solve = solvers[0]._card.level_launches
+    if host + card != int(np.sum(stats.iter_history)) or sweeps != (card + 1) * per_solve:
+        raise RuntimeError(
+            f"heat march: {host} + {card} frozen solves for {stats.iter_history.tolist()}"
+            f" iterations, {sweeps} sn_trsv launches for {per_solve} a solve"
+        )
+    HEAT_SOLVER.update(solver=solvers[0], launches=sweeps, card_solves=card)
+    return count
+
+
+def phase12_marches() -> dict:
+    import mfv2d_torch as mf
+    from mfv2d_torch.models import flow
+    from mfv2d_torch.ops.kernels import mass_edge
+
+    launches = {"heat 64x64 direct": _p12_heat_direct()}
     _device_profile(
         "phase 12, heat march 64x64 p=4 direct, first 4 steps, warm",
         lambda: _heat_march(64, 4, "direct", nt=4),
@@ -1567,6 +1628,124 @@ def phase12_marches() -> dict:
     if not gap <= 1e-6:
         raise RuntimeError(f"the cavity marches disagree: {gap:.3e}")
     return launches
+
+
+# The sweeps on the card against SciPy's solve and their plain version:
+# the same operations summed in another order.
+SN_TRSV_TOL = 1e-12
+
+
+def _tensor_bytes(obj) -> int:
+    """The bytes of the tensors a dataclass holds, its nested ones too."""
+    total = 0
+    for value in vars(obj).values():
+        if isinstance(value, torch.Tensor):
+            total += value.numel() * value.element_size()
+        elif hasattr(value, "__dataclass_fields__"):
+            total += _tensor_bytes(value)
+    return total
+
+
+def phase12b_sn_trsv() -> dict:
+    """Phase 12's frozen LU on the card (see the module's docstring)."""
+    from mfv2d_torch.ops.kernels import supernodal
+
+    solver = HEAT_SOLVER.pop("solver")
+    lu, card = solver._decomp, solver._card
+    s = card.schedule
+    device = s.perm_in.device
+    lmat, umat = lu.L, lu.U
+    n, nnz_l, nnz_u = lmat.shape[0], lmat.nnz, umat.nnz
+
+    def rel(mine, ref) -> float:
+        return float(np.abs(mine - ref).max() / np.abs(ref).max())
+
+    rng = np.random.default_rng(12)
+    sides = [rng.normal(size=n) * 10.0**k for k in (-3, 0, 3)]
+    refs = [lu.solve(b) for b in sides]
+    rel_scipy = 0.0
+    for b, ref in zip(sides, refs):
+        x = card.solve(b)
+        rel_scipy = max(rel_scipy, rel(x, ref))
+        if not np.array_equal(card.solve(b), x):
+            raise RuntimeError("12b: two card solves of one right side differ")
+    t0 = time.perf_counter()
+    plain = supernodal.solve_plain(s, torch.as_tensor(sides[0], device=device)).cpu().numpy()
+    plain_s = time.perf_counter() - t0
+    rel_plain = rel(card.solve(sides[0]), plain)
+
+    ms = _median_ms(card._graph.replay)
+    walls, host = [], []
+    for _ in range(20):
+        t0 = time.perf_counter()
+        card.solve(sides[1])
+        walls.append(time.perf_counter() - t0)
+    for _ in range(5):
+        t0 = time.perf_counter()
+        lu.solve(sides[1])
+        host.append(time.perf_counter() - t0)
+    wall_ms, host_ms = 1e3 * float(np.median(walls)), 1e3 * float(np.median(host))
+
+    def csr(matrix):
+        matrix = matrix.tocsr()
+        return torch.sparse_csr_tensor(
+            torch.as_tensor(matrix.indptr, dtype=torch.int64, device=device),
+            torch.as_tensor(matrix.indices, dtype=torch.int64, device=device),
+            torch.as_tensor(matrix.data, device=device),
+            size=matrix.shape,
+        )
+
+    lower, upper = csr(lmat), csr(umat)
+    rhs = torch.as_tensor(sides[1], device=device)
+
+    def library():
+        z = rhs[s.perm_in][:, None]
+        y = torch.triangular_solve(z, lower, upper=False, unitriangular=True).solution
+        return torch.triangular_solve(y, upper, upper=True).solution[:, 0][s.perm_out]
+
+    rel_library = rel(library().cpu().numpy(), refs[1])
+    library_ms = _median_ms(library, reps=3, warmup=1)
+    del lower, upper, lmat, umat
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    again = supernodal.build_schedule(lu, device)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    build_peak = torch.cuda.max_memory_allocated() - base
+    schedule_bytes = _tensor_bytes(again)
+    del again
+    values = nnz_l - n + nnz_u  # L's unit diagonal is not stored
+    bound_ms, bound_by = _bound(8 * values + 16 * n, 2 * values)
+    levels = [len(s.lower.launches), len(s.upper.launches)]
+    print(
+        f"phase 12b: the heat march's frozen LU (n {n}, L {nnz_l} and U {nnz_u} non-zeros,"
+        f" {s.n_blocks} blocks, L {levels[0]} and U {levels[1]} levels, {card.level_launches}"
+        f" launches a solve): sn_trsv within {rel_scipy:.3e} of SciPy (3 right sides) and"
+        f" {rel_plain:.3e} of its plain version ({plain_s:.2f} s), bitwise repeatable;"
+        f" median a solve: kernel {ms:.4f} ms (graph replay), {wall_ms:.4f} ms wall with"
+        f" the copies, SciPy {host_ms:.3f} ms, torch.triangular_solve on CSR"
+        f" {library_ms:.3f} ms (within {rel_library:.3e}), bound {bound_ms:.4f} ms"
+        f" ({bound_by}: {8 * values + 16 * n} bytes); the build again {build_s:.4f} s, peak"
+        f" {build_peak} bytes above its start for a schedule of {schedule_bytes} bytes"
+    )
+    if not (rel_scipy <= SN_TRSV_TOL and rel_plain <= SN_TRSV_TOL):
+        raise RuntimeError(f"12b: sn_trsv {rel_scipy:.3e} from SciPy, {rel_plain:.3e} from plain")
+    report = {
+        "n": n, "L_nnz": nnz_l, "U_nnz": nnz_u, "blocks": s.n_blocks, "levels": levels,
+        "launches_per_solve": card.level_launches, "ms": ms, "wall_ms": wall_ms,
+        "host_ms": host_ms, "library_ms": library_ms, "bound_ms": bound_ms,
+        "bound_by": bound_by, "plain_s": plain_s, "rel_scipy": rel_scipy,
+        "rel_plain": rel_plain, "rel_library": rel_library, "build_s": build_s,
+        "build_peak_bytes": build_peak, "schedule_bytes": schedule_bytes,
+        "launches": HEAT_SOLVER["launches"], "card_solves": HEAT_SOLVER["card_solves"],
+    }
+    del solver, card, s
+    HEAT_SOLVER.clear()
+    torch.cuda.empty_cache()
+    return report
 
 
 # Phase 14: hp refinement of the gallery's advection-diffusion system
@@ -3589,6 +3768,20 @@ def phase18b_stokes() -> dict:
     return {"wall_s": wall, "peak_bytes": peak, "stages": stages, **got, **kernels}
 
 
+def _sn_trsv_entry(timing: dict) -> dict:
+    """The kernel report's entry of the frozen LU's sweeps (phase 12b),
+    with the launches of phase 12's heat march."""
+    return {
+        "name": "sn_trsv",
+        "route": "cuda",
+        "source": "mfv2d_torch/csrc/sn_trsv.cu",
+        # The JAX package solves its frozen saddle systems with SciPy on the host.
+        "replaces": None,
+        "launches_in": "phase 12 (heat march 64x64 p=4 direct)",
+        **timing,
+    }
+
+
 # Wall seconds of each phase after the build, printed before the reports.
 PHASE_WALLS: dict[str, float] = {}
 
@@ -3608,9 +3801,10 @@ def main() -> int:
         "--probe",
         nargs="?",
         const="inverse",
-        choices=("inverse", "mass", "hp", "vms", "parallel", "gallery"),
+        choices=("inverse", "mass", "hp", "vms", "parallel", "gallery", "trsv"),
         help="phases 0 and 1, then only phase 6 (inverse, the default), 2 (mass),"
-        " 14 (hp), 15 (vms), 16 and 17 (parallel) or 18 and 18b (gallery)",
+        " 14 (hp), 15 (vms), 16 and 17 (parallel), 18 and 18b (gallery) or phase"
+        " 12's heat march and 12b (trsv)",
     )
     args = parser.parse_args()
 
@@ -3640,6 +3834,12 @@ def main() -> int:
     if args.probe == "inverse":
         print(json.dumps(phase6_inverse_vs_plain()))
         return 0
+    if args.probe == "trsv":
+        _timed("12", _p12_heat_direct)
+        trsv = _timed("12b", phase12b_sn_trsv)
+        print(f"phase walls (s): {PHASE_WALLS}")
+        print(json.dumps({"kernels": [_sn_trsv_entry(trsv)]}))
+        return 0
     mass_timing = _timed("2", phase2_kernel_vs_plain)
     if args.probe == "mass":
         print(json.dumps(mass_timing))
@@ -3659,6 +3859,7 @@ def main() -> int:
     ) = _timed("10", phase10_streamed_table)
     newton_launches = _timed("11", phase11_newton, direct_iterations)
     march_launches = _timed("12", phase12_marches)
+    trsv = _timed("12b", phase12b_sn_trsv)
     mass_launches["phase 13"], p16_inverse_launches = _timed("13", phase13_p16)
     hp = _timed("14", phase14_hp)
     vms = _timed("15", phase15_vms)
@@ -3720,6 +3921,7 @@ def main() -> int:
                 },
                 **inverse_timing,
             },
+            _sn_trsv_entry(trsv),
             # Phase 14: M1 at each shape the hp rounds and the final solves
             # launched it on, with that shape's launches (those inside the
             # refinement stage apart); the inverse at each bucket of the final

@@ -423,7 +423,9 @@ def error_estimate_with_fine_solve(
     forcing, matrices, lagrange_mat, lagrange_vec = compute_linear_system(
         fine_disc, system, evaluator, list(constrained), list(boundary_conditions), None
     )
-    solver = FrozenSaddleSolver(evaluator.matrices_per_leaf(matrices), lagrange_mat)
+    solver = FrozenSaddleSolver(
+        evaluator.matrices_per_leaf(matrices), lagrange_mat, fine_disc.buckets[0].batch.device
+    )
     explicit_vec = (
         forcing if lagrange_mat is None else np.concatenate((forcing, lagrange_vec))
     )

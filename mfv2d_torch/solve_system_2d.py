@@ -144,7 +144,9 @@ def _make_solver(solver_settings: SolverSettings, disc, evaluator, matrices,
                  lagrange_mat, n_lagrange: int):
     """The frozen linear solver that ``linear_solver`` names."""
     if solver_settings.linear_solver == "direct":
-        return FrozenSaddleSolver(evaluator.matrices_per_leaf(matrices), lagrange_mat)
+        return FrozenSaddleSolver(
+            evaluator.matrices_per_leaf(matrices), lagrange_mat, disc.buckets[0].batch.device
+        )
     if solver_settings.linear_solver == "dense":
         from mfv2d_torch.solver.iterative import DenseSaddleSolver
 

@@ -12,6 +12,7 @@ per assembly and each residual once per iteration.
 
 from __future__ import annotations
 
+import time
 from collections.abc import Callable, Mapping, Sequence
 from dataclasses import dataclass, field
 
@@ -35,6 +36,7 @@ from mfv2d_torch.kform import (
     UnknownFormOrder,
 )
 from mfv2d_torch.mimetic import vtk_lagrange_ordering
+from mfv2d_torch.ops.kernels import supernodal
 from mfv2d_torch.progress import ProgressTracker
 from mfv2d_torch.projection import element_dual_dofs
 from mfv2d_torch.solver.discretization import Discretization, OrderBucket, per_leaf
@@ -362,17 +364,33 @@ def compute_linear_system(
     return forcing, matrices, lagrange_mat, lagrange_vec
 
 
+# A factorization whose first solve on the host took less than this stays
+# on the host: a solve on the card takes 2.4-3.1 ms with its copies (H100,
+# n = 36,352 and 261,632), so it would gain too little a solve to pay for
+# laying the factors out (0.06-0.3 s, about five host solves).
+CARD_MIN_HOST_SOLVE_S = 0.005
+
+
 class FrozenSaddleSolver:
     """LU factorization of [[A, G^T], [G, 0]] reused across iterations.
 
     A is block-diagonal over elements.  Host SciPy SuperLU.  Traced as
     ``saddle-matrix`` (the sparse saddle matrix, to CSC) and ``superlu``.
+
+    On a CUDA ``device``, once the first solve (SuperLU's own) has taken at
+    least :data:`CARD_MIN_HOST_SOLVE_S`, the second and later solves run the
+    factors' triangular sweeps on the card
+    (:mod:`mfv2d_torch.ops.kernels.supernodal`): the second solve lays the
+    factors out there first, traced as ``frozen-solve-prepare``.  Every
+    other solve is SuperLU's.  The tracer counts ``frozen_solve_host`` and
+    ``frozen_solve_card``.
     """
 
     def __init__(
         self,
         element_matrices_per_leaf: list[np.ndarray],
         lagrange_mat: sp.csr_array | None,
+        device: torch.device | str | None = None,
     ) -> None:
         with tracer.stage("saddle-matrix"):
             main_mat = sp.block_diag(element_matrices_per_leaf, format="csr")
@@ -384,9 +402,32 @@ class FrozenSaddleSolver:
         self.n_lagrange = 0 if lagrange_mat is None else lagrange_mat.shape[0]
         with tracer.stage("superlu"):
             self._decomp = sla.splu(main_mat)
+        on_card = device is not None and torch.device(device).type == "cuda"
+        self._card_device = torch.device(device) if on_card else None
+        self._first_solve_s: float | None = None
+        self._card = None
 
     def solve(self, rhs: np.ndarray) -> np.ndarray:
-        return np.asarray(self._decomp.solve(rhs), np.float64)
+        """The solution for one right side ``rhs`` of the saddle system."""
+        if (
+            self._card is None
+            and self._card_device is not None
+            and self._first_solve_s is not None
+            and self._first_solve_s >= CARD_MIN_HOST_SOLVE_S
+        ):
+            with tracer.stage("frozen-solve-prepare"):
+                self._card = supernodal.CardSolve(
+                    supernodal.build_schedule(self._decomp, self._card_device)
+                )
+        if self._card is None:
+            tracer.count("frozen_solve_host")
+            start = time.perf_counter()
+            x = np.asarray(self._decomp.solve(rhs), np.float64)
+            if self._first_solve_s is None:
+                self._first_solve_s = time.perf_counter() - start
+            return x
+        tracer.count("frozen_solve_card")
+        return self._card.solve(rhs)
 
 
 def _preconditioned_newton_solve(
@@ -615,7 +656,9 @@ def non_linear_solve_run(
                 )
                 if not ok:
                     solver = FrozenSaddleSolver(
-                        evaluator.matrices_per_leaf(jac_blocks), lagrange_mat
+                        evaluator.matrices_per_leaf(jac_blocks),
+                        lagrange_mat,
+                        evaluator.disc.buckets[0].batch.device,
                     )
                     d_solution = solver.solve(residual)
         else:

@@ -31,7 +31,11 @@ While the tracer is on:
   ``march_steps`` (one a step of a trapezoidal march on the host loop,
   counted inside its ``march-step`` span; the step's residuals, update
   solves and reconstruction sit under that span, and its carry projection
-  and update in ``march-step/carry``).
+  and update in ``march-step/carry``), ``frozen_solve_host`` and
+  ``frozen_solve_card`` (each solve of a
+  :class:`mfv2d_torch.solver.solve.FrozenSaddleSolver` by SciPy's SuperLU or
+  by the factors' sweeps on the card; the card's schedule is built once a
+  factorization inside the span ``frozen-solve-prepare``).
 
 :meth:`Tracer.reset` clears the totals, spans and counters.  Off, a stage
 or a count costs one attribute check.
