@@ -73,14 +73,14 @@ Phases (each ends in torch.cuda.synchronize(); any failure exits non-zero):
    on the inverse's streamed route
 11. steady Newton: phase 5's Navier-Stokes with method="newton" through
    "direct" and "schur_direct", its iterations beside Picard's and the JAX
-   package's; a Jacobian after warm-up launches no kernel; then the fused
-   dense Newton at 8x8, p=5, with the dense saddle's bytes
+   package's; a Jacobian after warm-up launches no kernel; then the
+   "dense" Newton at 8x8, p=5, with the dense saddle's bytes
 12. time marches: BASELINE config 2, the mixed heat march on 64x64, p=4
    through "direct" (16 steps, error at t_end against the exact solution;
-   then its first 4 steps again, warm, under torch.profiler); the fused
-   dense linear march of the JAX bench's heat cell (16x16, p=4, 64 steps);
-   and the lid-driven cavity on 16x16, p=4 by the fused dense Picard march
-   and the fused dense Newton march, with iterations per step.  The heat
+   then its first 4 steps again, warm, under torch.profiler); the "dense"
+   linear march of the JAX bench's heat cell (16x16, p=4, 64 steps); and
+   the lid-driven cavity on 16x16, p=4 by the "dense" Picard march and the
+   "dense" Newton march, with iterations per step and walls.  The heat
    march's frozen solves after its first run on the card (sn_trsv): its
    launches are counted from 0 for that march and must be the launches of
    one solve times its card solves and the one run before the graph's
@@ -135,7 +135,7 @@ Phases (each ends in torch.cuda.synchronize(); any failure exits non-zero):
    14's final hp mesh at 2 ranks (trace GMRES) against phase 14's
    "schur_direct" solution; (e) checkpoints: the linear heat march cut
    at 32 steps and resumed to 64 against an uninterrupted host march
-   (1e-13) and phase 12's fused march (1e-10), phase 5's solve cut after
+   (1e-13) and phase 12's dense march (1e-10), phase 5's solve cut after
    6 iterations and resumed (17 in all, 1e-12), and 16c's files, the
    last of which resumes a world-size-1 run.  Every rank
    returns the same answer and counts one all_reduce per trace matvec;
@@ -149,8 +149,8 @@ Phases (each ends in torch.cuda.synchronize(); any failure exits non-zero):
    sampled state within 1e-8 of phase 12's "direct" march and the error
    at t_end within 1e-8 of its; (c) phase 12's cavity (16x16 p=4, Re=25,
    GMRES) by the Picard march and the host Newton march at 2 ranks for
-   P17_CAVITY_NT steps, iterations a step and the state against the fused
-   dense marches of the same steps; (d) 16e's linear heat march at 2 ranks
+   P17_CAVITY_NT steps, iterations a step and the state against the
+   single-device "dense" marches of the same steps; (d) 16e's linear heat march at 2 ranks
    cut at 32 steps and resumed to 64 (1e-12 from the uninterrupted 2-rank
    march), the single-device cut file resumed at 2 ranks and the 2-rank
    cut file on the single-device host loop (1e-10); (e) phase 14's first
@@ -199,6 +199,8 @@ from pathlib import Path
 
 import numpy as np
 import torch
+
+from benchmark.roofline import bound_s
 
 ROOT = Path(__file__).resolve().parent
 BASE = np.array([(-1.0, -1.0), (1.0, -1.0), (1.0, 1.0), (-1.0, 1.0)])
@@ -283,11 +285,6 @@ INVERSE_ROUTES = {56: "register", 121: "blocked", 208: "blocked", 289: "streamed
                   290: "streamed", 320: "streamed", 441: "streamed", 460: "streamed",
                   1056: "streamed", 1089: "streamed", 1090: "streamed", 2401: "streamed"}
 INVERSE_TOL = {torch.float64: 1e-10, torch.float32: 1e-3}
-# The H100 SXM's HBM rate and FP64 peak (tensor cores; NVIDIA data sheet):
-# the bound of a kernel is the larger of its compulsory bytes and its
-# operations over these.
-HBM_BYTES_PER_S = 3.35e12
-FP64_FLOP_PER_S = 67e12
 
 
 def rel_err(mine, ref) -> float:
@@ -356,13 +353,6 @@ def phase1_build() -> None:
     if "gj_inverse" in _build.build_logs and not register_entries:
         raise RuntimeError("ptxas reported no register-route kernel")
     print(f"  register route: 0 spill bytes in {len(set(register_entries))} instantiations")
-
-
-def _bound(n_bytes: float, n_flops: float) -> tuple[float, str]:
-    """The least time (ms) the card could take, and what bounds it."""
-    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
-    flops_ms = n_flops / FP64_FLOP_PER_S * 1e3
-    return (bytes_ms, "bytes") if bytes_ms >= flops_ms else (flops_ms, "operations")
 
 
 def _kernel_inputs(orders, e, dtype, seed, over=3):
@@ -512,7 +502,8 @@ def _time_mass_edge(
         raise RuntimeError(f"kernel or einsum disagrees: {err:.3e}, {library_err:.3e}")
     # The least work: every output written and every Jacobian term read
     # once; by the symmetry of M1, n1 (n1 + 1) / 2 sums of nq products.
-    bound_ms, bound_by = _bound(out_bytes, e * n1 * (n1 + 1) * nq)
+    bound, bound_by = bound_s(out_bytes, e * n1 * (n1 + 1) * nq)
+    bound_ms = bound * 1e3
     print(
         f"phase {phase}: kernel agrees; M1 {shape} f64 median: kernel {ms:.4f} ms"
         f" ({back_to_back_ms:.4f} ms per call of ten back to back),"
@@ -873,7 +864,8 @@ def phase6_inverse_vs_plain() -> dict:
             err = rel_err(gj_inverse.gj_inverse(a), ref)
             ms = _median_ms(lambda: gj_inverse.gj_inverse(a), reps=3, warmup=1)
             library_ms = _median_ms(lambda: gj_inverse_plain(a), reps=3, warmup=1)
-            bound_ms, bound_by = _bound(2 * a.numel() * a.element_size(), 2 * n**3)
+            bound, bound_by = bound_s(2 * a.numel() * a.element_size(), 2 * n**3)
+            bound_ms = bound * 1e3
             print(
                 f"  {str(dtype):14s} n={n} E=1, {plan.panel} columns, {plan.blocks} panel"
                 f" blocks, {plan.spill} rows a block spilled to L2: rel err {err:.3e};"
@@ -959,7 +951,8 @@ def _time_inverse(a: torch.Tensor, name: str, phase: int) -> dict:
         timing["ms_back_to_back"] = _median_ms(lambda: gj_inverse.gj_inverse(a), calls=10)
         timing["library_ms_back_to_back"] = _median_ms(lambda: gj_inverse_plain(a), calls=10)
     torch.cuda.synchronize()
-    bound_ms, bound_by = _bound(2 * a.numel() * a.element_size(), 2 * n**3 * e)
+    bound, bound_by = bound_s(2 * a.numel() * a.element_size(), 2 * n**3 * e)
+    bound_ms = bound * 1e3
     by_kernel, sessions = _kernel_launches(lambda: gj_inverse.gj_inverse(a), "gj_")
     launches = sum(by_kernel.values()) or None  # None: the profiler saw no kernel
     print(
@@ -1486,8 +1479,8 @@ def _linear_heat_problem(nt: int):
 
 
 def _linear_heat_march(nt: int = LINEAR_HEAT_NT, checkpoint_settings=None):
-    """The fused dense linear heat march (to ``nt`` steps); with
-    ``checkpoint_settings`` the same march takes the host loop.  Returns
+    """The "dense" linear heat march (to ``nt`` steps), saving its state
+    where ``checkpoint_settings`` says.  Returns
     the statistics, the error at the end, the wall, M1's launches and the
     last grid."""
     import mfv2d_torch as mf
@@ -1570,7 +1563,7 @@ def phase12_marches() -> dict:
 
     stats16, err16, wall16, count, REFERENCES["phase 12"] = _linear_heat_march()
     print(
-        f"phase 12: fused dense linear heat march 16x16 p=4: {stats16.n_total_dofs}"
+        f"phase 12: dense linear heat march 16x16 p=4: {stats16.n_total_dofs}"
         f" unknowns (dense saddle {stats16.n_total_dofs**2 * 8} bytes),"
         f" {LINEAR_HEAT_NT} steps of dt={LINEAR_HEAT_DT}, L2 point error"
         f" {err16:.3e}, wall {wall16:.3f} s, mass_edge launches {count}"
@@ -1611,7 +1604,7 @@ def phase12_marches() -> dict:
         vel = grids[-1].point_data["vel"]
         finals[method] = vel
         print(
-            f"phase 12: cavity Re=25 16x16 p=4 fused dense {method} march:"
+            f"phase 12: cavity Re=25 16x16 p=4 dense {method} march:"
             f" {stats.n_total_dofs} unknowns (dense saddle"
             f" {stats.n_total_dofs**2 * 8} bytes), iterations per step"
             f" {stats.iter_history.tolist()}, last residuals"
@@ -1718,7 +1711,8 @@ def phase12b_sn_trsv() -> dict:
     schedule_bytes = _tensor_bytes(again)
     del again
     values = nnz_l - n + nnz_u  # L's unit diagonal is not stored
-    bound_ms, bound_by = _bound(8 * values + 16 * n, 2 * values)
+    bound, bound_by = bound_s(8 * values + 16 * n, 2 * values)
+    bound_ms = bound * 1e3
     levels = [len(s.lower.launches), len(s.upper.launches)]
     print(
         f"phase 12b: the heat march's frozen LU (n {n}, L {nnz_l} and U {nnz_u} non-zeros,"
@@ -2668,13 +2662,13 @@ def _p16_checkpoints(work, iters5: int, grid5) -> dict:
         LINEAR_HEAT_NT, mf.CheckpointSettings(str(work / "heat-whole.npz"), every=16)
     )
     gap_host = float(np.abs(resumed.point_data["u"] - whole.point_data["u"]).max())
-    gap_fused = _field_rel(resumed.point_data["u"], REFERENCES["phase 12"].point_data["u"])
+    gap_dense = _field_rel(resumed.point_data["u"], REFERENCES["phase 12"].point_data["u"])
     print(
         f"phase 16e: linear heat march 16x16 p=4, {half} steps then resumed to"
         f" {LINEAR_HEAT_NT} (every=16): against the uninterrupted host march"
-        f" {gap_host:.3e}, against phase 12's fused march {gap_fused:.3e} (relative)"
+        f" {gap_host:.3e}, against phase 12's dense march {gap_dense:.3e} (relative)"
     )
-    if not (gap_host <= 1e-13 and gap_fused <= 1e-10):
+    if not (gap_host <= 1e-13 and gap_dense <= 1e-10):
         raise RuntimeError("16e: the resumed heat march disagrees")
 
     model = flow.navier_stokes(10.0)
@@ -2699,7 +2693,7 @@ def _p16_checkpoints(work, iters5: int, grid5) -> dict:
     )
     if sum(iterations) != iters5 or not gap_ns <= 1e-12:
         raise RuntimeError("16e: the resumed Navier-Stokes solve disagrees")
-    return {"heat_vs_host": gap_host, "heat_vs_fused": gap_fused, "ns_iterations": iterations,
+    return {"heat_vs_host": gap_host, "heat_vs_dense": gap_dense, "ns_iterations": iterations,
             "ns_vs_phase5": gap_ns}
 
 
@@ -2771,7 +2765,7 @@ def _p16_report(parallel: dict) -> dict:
 # The ranks are spawned as in phase 16 and build their problems by name.
 # 17c: steps of each sharded cavity march, and the Picard march's cap of
 # iterations a step (its 14 to convergence take over 60 s at 2 ranks on
-# one card, 2.4 ms a GMRES iteration); the fused references take the same.
+# one card, 2.4 ms a GMRES iteration); the dense references take the same.
 P17_CAVITY_NT, P17_CAVITY_PICARD_CAP = 1, 8
 # 17f: config 5's orders at 1 rank on this mesh, the largest of 16x16,
 # 32x32 and 64x64 under the time the phase allows (16x16 took 2.9 s).
@@ -2994,14 +2988,14 @@ def _p17_references(work) -> None:
         )
     if "phase 15a matrix-free" not in REFERENCES:
         REFERENCES["phase 15a matrix-free"] = _vms_solve(8, 4, True)
-    # The fused dense cavity marches over 17c's steps.
+    # The single-device dense cavity marches over 17c's steps.
     for method in ("picard", "newton"):
         fe_mesh, settings, solver, extra, recon, _, _ = _p17_problem(f"cavity {method}")
         grids, stats, _ = mf.solve_system_2d(
             fe_mesh, settings, replace(solver, linear_solver="dense"), recon_order=recon,
             device="cuda", **extra,
         )
-        REFERENCES[f"17c fused {method}"] = (stats.iter_history.tolist(),
+        REFERENCES[f"17c dense {method}"] = (stats.iter_history.tolist(),
                                              grids[-1].point_data["vel"])
     # 17f: the single-device VMS solves of config 5's orders on 17f's meshes.
     for mesh_n in (16, P17_VMS_MESH):
@@ -3170,7 +3164,7 @@ def phase17_parallel() -> dict:
     # reaction term sits on the right-hand side, so the JAX package's routing
     # (by the compiled system) takes it to the Picard march, as the
     # single-device path iterates each of its steps; the linear march runs
-    # 16e's heat march, against phase 12's fused dense march.
+    # 16e's heat march, against phase 12's dense march.
     grids12, err12 = REFERENCES["phase 12 heat"]
     for name in ("17b 1 rank", "17b 2 ranks"):
         b = by_job[name][0]
@@ -3200,7 +3194,7 @@ def phase17_parallel() -> dict:
                                     REFERENCES["phase 12"].point_data["u"])
     print(
         f"  17b linear: 16x16 p=4 heat march, {LINEAR_HEAT_NT} steps at 2 ranks, against"
-        f" phase 12's fused dense march {gaps['17b linear']:.3e}"
+        f" phase 12's dense march {gaps['17b linear']:.3e}"
     )
     if not gaps["17b linear"] <= P17_TOL:
         raise RuntimeError(f"17b linear: {gaps['17b linear']:.3e} from phase 12")
@@ -3212,17 +3206,19 @@ def phase17_parallel() -> dict:
         ) <= 0:
             raise RuntimeError(f"17b: rank {rank} did not launch both kernels at E={e_half}")
 
-    # 17c: the Picard and the Newton (host) marches against the fused dense.
+    # 17c: the Picard and the Newton (host) marches against the single-device
+    # dense ones.
     for method in ("picard", "newton"):
         c = by_job[f"17c {method}"][0]
-        fused_iters, fused_vel = REFERENCES[f"17c fused {method}"]
-        # The host march counts residual evaluations, one more than the
-        # corrections the Picard and the fused marches count.
-        want = [i + (method == "newton") for i in fused_iters]
-        gaps[f"17c {method}"] = _field_rel(c["fields"][-1]["vel"], fused_vel)
+        dense_iters, dense_vel = REFERENCES[f"17c dense {method}"]
+        # The sharded host Newton march counts residual evaluations, one
+        # more than the corrections the Picard and the single-device
+        # marches count.
+        want = [i + (method == "newton") for i in dense_iters]
+        gaps[f"17c {method}"] = _field_rel(c["fields"][-1]["vel"], dense_vel)
         print(
-            f"  17c {method}: iterations a step {c['iterations']} (fused dense {fused_iters}),"
-            f" last residuals {c['residuals']}, velocity against the fused dense march"
+            f"  17c {method}: iterations a step {c['iterations']} (dense {dense_iters}),"
+            f" last residuals {c['residuals']}, velocity against the dense march"
             f" {gaps[f'17c {method}']:.3e}"
         )
         if c["iterations"] != want or not gaps[f"17c {method}"] <= P17_TOL:

@@ -845,8 +845,11 @@ def _march_prologue(system, disc: Discretization, comm: TraceComm, time_settings
     from mfv2d_torch.continuity import add_system_constraints
     from mfv2d_torch.kform import TimeDependent
     from mfv2d_torch.solve_system_2d import update_system_for_time_march
-    from mfv2d_torch.solver.fused import _sample_slots
-    from mfv2d_torch.solver.solve import compute_forcing_vector, find_time_carry_indices
+    from mfv2d_torch.solver.solve import (
+        compute_forcing_vector,
+        find_time_carry_indices,
+        sampled_time_steps,
+    )
 
     marched = update_system_for_time_march(time_settings, system)
     compiled = CompiledSystem(marched)
@@ -942,7 +945,7 @@ def _march_prologue(system, disc: Discretization, comm: TraceComm, time_settings
         carry_cols=carry_cols,
         mass_blocks=[_dual_mass_blocks(sub, marched.unknown_forms) for _, sub in msys.subsystems],
         max_mag=max_mag,
-        sample_steps=_sample_slots(nt, time_settings.sample_rate),
+        sample_steps=sampled_time_steps(nt, time_settings.sample_rate),
         two_over_dt=2.0 / dt,
         dt=dt,
         nt=nt,
@@ -981,8 +984,8 @@ def _march_loop(setup, solve_step, us, lam, old, terms, *, start: int = 0, on_st
     Step ``ti`` solves for ``t = (ti + 1) dt`` by ``solve_step(bases, c_t,
     us, lam) -> (us, lam, iterations, last residual)``, then advances the
     carry from the dual of the new state; the states of the sampled steps
-    (``_sample_slots``, the host march's rule) are kept.  Returns ``(samples, sampled steps, lam,
-    iterations [nt], residuals [nt])``.
+    (``sampled_time_steps``, the host march's rule) are kept.  Returns
+    ``(samples, sampled steps, lam, iterations [nt], residuals [nt])``.
     """
     iters = np.zeros(setup.nt, np.uint32)
     changes = np.zeros(setup.nt)

@@ -11,8 +11,8 @@ Orchestrates the pipeline (reference: python/mfv2d/solve_system_2d.py):
    element-local trace solvers (``"schur"``, ``"schur_direct"``, ``"pcg"``,
    ``"gmres"``),
 5. run the Picard or Newton loop (and the trapezoidal time march when
-   requested): on the host over the frozen solver, or, with ``"dense"``,
-   as device loops (solver/fused.py),
+   requested) on the host over the linear solver, whichever it is
+   (solver/solve.py),
 6. reconstruct the output grids,
 7. with ``refinement_settings``, estimate the element errors and return the
    hp-refined mesh (refinement.py).
@@ -58,6 +58,7 @@ from mfv2d_torch.solver.solve import (
     find_time_carry_indices,
     non_linear_solve_run,
     reconstruct_mesh_from_solution,
+    sampled_time_steps,
 )
 from mfv2d_torch.system import KFormSystem
 from mfv2d_torch.tracing import tracer
@@ -429,55 +430,7 @@ def _solve(
     )
     resulting_grids: list[ReconstructedGrid] = [grid]
 
-    # The dense solver runs its loops on the device (solver/fused.py) unless
-    # something forces a host loop: VMS, per-iteration output, checkpoints,
-    # or a march whose boundary values, forcing or operator change with time.
-    fused = (
-        solver_settings.linear_solver == "dense"
-        and sg_operator is None
-        and not print_residual
-        and checkpoint_settings is None
-        and not has_unsteady_bcs
-        and not has_td_rhs
-        and not has_td_fields
-    )
-    linear = compiled.rhs_blocks is None and compiled.nonlin_blocks is None
-    if time_settings is not None and fused:
-        from mfv2d_torch.solver import fused as fused_loops
-
-        nt = time_settings.nt
-        dt = time_settings.dt
-        if linear:
-            # Linear march: one device solve per step.
-            us, sample_steps, global_lagrange = fused_loops.fused_linear_time_march(
-                disc, matrices, lagrange_mat, explicit_vec, time_carry_index_array,
-                solution, old_solution_carry, np.asarray(time_carry_term), dt, nt,
-                time_settings.sample_rate,
-            )
-            changes = np.zeros(nt)
-            iters = np.ones(nt, np.uint32)
-        else:
-            march, extra = (
-                (fused_loops.fused_newton_time_march, {})
-                if newton
-                else (
-                    fused_loops.fused_nonlinear_time_march,
-                    {"anderson_m": solver_settings.anderson_m},
-                )
-            )
-            us, sample_steps, global_lagrange, iters, changes = march(
-                disc, evaluator, matrices, lagrange_mat, explicit_vec,
-                time_carry_index_array, solution, old_solution_carry,
-                np.asarray(time_carry_term), dt, nt, max_iterations, relax, atol,
-                rtol, max_mag, time_settings.sample_rate, **extra,
-            )
-        for s_i, time_index in enumerate(sample_steps):
-            with tracer.stage("reconstruct"):
-                grid = reconstruct_mesh_from_solution(disc, recon_order, us[s_i])
-            grid.field_data["time"] = np.array([(int(time_index) + 1) * dt])
-            resulting_grids.append(grid)
-        solution = us[-1]
-    elif time_settings is not None:
+    if time_settings is not None:
         nt = time_settings.nt
         dt = time_settings.dt
         changes = np.zeros(nt)
@@ -488,6 +441,7 @@ def _solve(
             if (has_unsteady_bcs and not has_td_rhs)
             else None
         )
+        sampled = set(sampled_time_steps(nt, time_settings.sample_rate).tolist())
         for time_index in range(start_index, nt):
             with tracer.stage("march-step"):
                 tracer.count("march_steps")
@@ -610,7 +564,7 @@ def _solve(
                         dt,
                     )
 
-                if (time_index % time_settings.sample_rate) == 0 or time_index + 1 == nt:
+                if time_index in sampled:
                     with tracer.stage("reconstruct"):
                         grid = reconstruct_mesh_from_solution(
                             disc,
@@ -627,53 +581,34 @@ def _solve(
                         f" with residual of {float(max_residual):.5e}"
                     )
     else:
-        if fused:
-            # Steady solve on the device: Picard with the frozen LU, or
-            # exact Newton with the Jacobian saddle refactorized each
-            # iteration.
-            from mfv2d_torch.solver import fused as fused_loops
-
-            loop, extra = (
-                (fused_loops.fused_newton_solve, {})
-                if newton
-                else (
-                    fused_loops.fused_picard_solve,
-                    {"anderson_m": solver_settings.anderson_m},
-                )
-            )
-            solution, global_lagrange, iter_cnt, all_residuals, _ = loop(
-                disc, evaluator, matrices, lagrange_mat, explicit_vec, solution,
-                global_lagrange, max_iterations, relax, atol, rtol, max_mag, **extra,
-            )
-        else:
-            (
-                solution,
-                global_lagrange,
-                iter_cnt,
-                all_residuals,
-                fine_scales,
-            ) = non_linear_solve_run(
-                max_iterations,
-                relax,
-                atol,
-                rtol,
-                print_residual,
-                evaluator,
-                explicit_vec,
-                solution,
-                global_lagrange,
-                max_mag,
-                solver,
-                lagrange_mat,
-                return_all_residuals=True,
-                anderson_m=solver_settings.anderson_m,
-                newton=newton,
-                fine_scales=fine_scales,
-                sg_operator=sg_operator,
-                checkpoint_cb=steady_save,
-            )
-            if steady_save is not None:
-                steady_save(iter_cnt, solution, global_lagrange, fine_scales, final=True)
+        (
+            solution,
+            global_lagrange,
+            iter_cnt,
+            all_residuals,
+            fine_scales,
+        ) = non_linear_solve_run(
+            max_iterations,
+            relax,
+            atol,
+            rtol,
+            print_residual,
+            evaluator,
+            explicit_vec,
+            solution,
+            global_lagrange,
+            max_mag,
+            solver,
+            lagrange_mat,
+            return_all_residuals=True,
+            anderson_m=solver_settings.anderson_m,
+            newton=newton,
+            fine_scales=fine_scales,
+            sg_operator=sg_operator,
+            checkpoint_cb=steady_save,
+        )
+        if steady_save is not None:
+            steady_save(iter_cnt, solution, global_lagrange, fine_scales, final=True)
         changes = np.asarray(all_residuals)[:iter_cnt]
         iters = np.array((iter_cnt,), np.uint32)
         with tracer.stage("reconstruct"):

@@ -371,6 +371,20 @@ def compute_linear_system(
 CARD_MIN_HOST_SOLVE_S = 0.005
 
 
+def saddle_matrix(
+    element_matrices_per_leaf: Sequence[np.ndarray], lagrange_mat: sp.csr_array | None
+) -> sp.csc_matrix:
+    """The sparse saddle matrix ``[[A, G^T], [G, 0]]`` (CSC) for SuperLU:
+    ``A`` block-diagonal over the leaves' element matrices, ``G`` the
+    constraint block (or no multipliers)."""
+    main_mat = sp.block_diag(element_matrices_per_leaf, format="csr")
+    if lagrange_mat is not None:
+        main_mat = sp.block_array(
+            ((main_mat, lagrange_mat.T), (lagrange_mat, None)), format="csr"
+        )
+    return sp.csc_matrix(main_mat)
+
+
 class FrozenSaddleSolver:
     """LU factorization of [[A, G^T], [G, 0]] reused across iterations.
 
@@ -393,12 +407,7 @@ class FrozenSaddleSolver:
         device: torch.device | str | None = None,
     ) -> None:
         with tracer.stage("saddle-matrix"):
-            main_mat = sp.block_diag(element_matrices_per_leaf, format="csr")
-            if lagrange_mat is not None:
-                main_mat = sp.block_array(
-                    ((main_mat, lagrange_mat.T), (lagrange_mat, None)), format="csr"
-                )
-            main_mat = sp.csc_matrix(main_mat)
+            main_mat = saddle_matrix(element_matrices_per_leaf, lagrange_mat)
         self.n_lagrange = 0 if lagrange_mat is None else lagrange_mat.shape[0]
         with tracer.stage("superlu"):
             self._decomp = sla.splu(main_mat)
@@ -776,6 +785,12 @@ def find_time_carry_indices(
         size = form_specs.form_size(u, order_1, order_2)
         output.append(offset + np.arange(size, dtype=np.uint32))
     return np.concatenate(output, dtype=np.uint32)
+
+
+def sampled_time_steps(nt: int, sample_rate: int) -> npt.NDArray[np.int64]:
+    """The march steps whose state is kept as an output grid:
+    ``{0, s, 2s, ...} | {nt - 1}`` for ``sample_rate`` s, in order."""
+    return np.union1d(np.arange(0, nt, sample_rate), [nt - 1]).astype(np.int64)
 
 
 # ---------------------------------------------------------------------------

@@ -56,6 +56,7 @@ from mfv2d_torch.solver.solve import (
     SystemEvaluator,
     VMSSettings,
     compute_element_rhs_bucket,
+    saddle_matrix,
 )
 from mfv2d_torch.system import KFormSystem
 from mfv2d_torch.tracing import tracer
@@ -365,16 +366,13 @@ class SuyashGreenOperator:
             return
 
         self.fine_sym_mat = self._saddle_matrix(fine_sym_buckets, fine_lag_mat)
-        self.fine_decomp = sla.splu(sp.csc_matrix(self.fine_sym_mat))
+        self.fine_decomp = sla.splu(self.fine_sym_mat)
         self.coarse_sym_mat = self._saddle_matrix(coarse_sym_buckets, coarse_lag_mat)
-        self.coarse_decomp = sla.splu(sp.csc_matrix(self.coarse_sym_mat))
+        self.coarse_decomp = sla.splu(self.coarse_sym_mat)
 
     def _saddle_matrix(self, blocks: Sequence[torch.Tensor], lagrange_mat):
         """``[[A, G^T], [G, 0]]`` (CSC) from per-bucket device blocks."""
-        block = sp.block_diag(per_leaf(self.disc, [b.cpu().numpy() for b in blocks]))
-        if lagrange_mat is None:
-            return sp.csc_array(block)
-        return sp.block_array([[block, lagrange_mat.T], [lagrange_mat, None]], format="csc")
+        return saddle_matrix(per_leaf(self.disc, [b.cpu().numpy() for b in blocks]), lagrange_mat)
 
     @cached_property
     def projector_c2f(self):

@@ -8,9 +8,10 @@ The port is held to it at 4x4 p=10, where the spatial error is far below
 the cell's limits, on the curved square the cell draws its meshes from; the
 JAX package's march is held to it at one of those sizes.
 
-The tracer's part: on the host loop each step is a ``march-step`` span with
-the step's residuals, update solve, carry and reconstruction under it, and
-one ``march_steps`` count; steady solves keep the paths they had.
+The tracer's part: whatever the linear solver, each step is a
+``march-step`` span with the step's residuals, update solve, carry and
+reconstruction under it, and one ``march_steps`` count; steady solves keep
+the paths they had.
 """
 
 import importlib.util
@@ -216,12 +217,24 @@ def test_an_off_tracer_counts_no_step(fresh_tracer):
     assert fresh_tracer.stages == {} and fresh_tracer.total("march_steps") == 0
 
 
-def test_the_fused_march_has_no_step_spans(fresh_tracer):
-    fresh_tracer.enable()
-    _march(tf, 2, n=2, p=2, recon_order=2, linear_solver="dense")
-    fresh_tracer.disable()
-    assert not any(k.startswith("march-step") for k in fresh_tracer.stages)
-    assert fresh_tracer.total("march_steps") == 0
+def test_a_dense_march_has_the_direct_step_spans(fresh_tracer):
+    nt = 3
+    steps = {}
+    for linear_solver in ("direct", "dense"):
+        fresh_tracer.reset()
+        fresh_tracer.enable()
+        _march(tf, nt, n=2, p=2, recon_order=2, linear_solver=linear_solver)
+        fresh_tracer.disable()
+        steps[linear_solver] = {
+            path: calls
+            for path, (calls, *_) in fresh_tracer.stages.items()
+            if path.startswith("march-step")
+        }
+        assert STEP_PATHS <= set(steps[linear_solver])
+        assert steps[linear_solver]["march-step"] == nt
+        assert fresh_tracer.total("march_steps") == nt
+        assert fresh_tracer.counters["march-step"]["march_steps"] == nt
+    assert steps["dense"] == steps["direct"]
 
 
 STEADY_PATHS = {

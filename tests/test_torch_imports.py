@@ -53,7 +53,7 @@ def test_import_leaves_no_jax_modules():
     code = (
         "import sys, mfv2d_torch, mfv2d_torch.solve_system_2d, "
         "mfv2d_torch.ops.kernels.mass_edge, mfv2d_torch.ops.kernels.gj_inverse, "
-        "mfv2d_torch.solver.iterative, mfv2d_torch.solver.fused, "
+        "mfv2d_torch.solver.iterative, "
         "mfv2d_torch.models.transport, mfv2d_torch.interop, mfv2d_torch.checkpoint, "
         "mfv2d_torch.solver.krylov, mfv2d_torch.parallel.sharding, mfv2d_torch.parallel.vms\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"

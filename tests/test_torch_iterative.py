@@ -198,6 +198,22 @@ def test_full_system_cg_and_dense_match_jax():
     assert tn == jn and np.array_equal(tmat, jmat)
 
 
+@pytest.mark.parametrize("constrained", [True, False], ids=["with_multipliers", "without"])
+def test_sparse_saddle_matrix_is_the_dense_one(setup33, constrained):
+    """The one sparse build of [[A, G^T], [G, 0]] (the frozen LU's and the
+    VMS saddles') holds the dense assembly's entries, in CSC."""
+    from mfv2d_torch.solver.discretization import per_leaf
+    from mfv2d_torch.solver.solve import saddle_matrix
+
+    _, tdisc, _, matrices, g, _ = setup33
+    g = g if constrained else None
+    sparse = saddle_matrix(per_leaf(tdisc, matrices), g)
+    dense, n_lag = ti.assemble_dense_saddle(tdisc, matrices, g)
+    assert sparse.format == "csc" and sparse.shape == dense.shape
+    assert n_lag == (g.shape[0] if constrained else 0)
+    assert np.array_equal(sparse.toarray(), dense)
+
+
 def test_unknown_iterative_method_raises():
     """As in the JAX package, full-system CG is not a selectable method."""
     _, tdisc, _, matrices, g, _ = _setup(2, 2)

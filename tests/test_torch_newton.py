@@ -3,8 +3,8 @@
 The element Jacobians come from forward-mode differentiation over a whole
 bucket in the port and from ``vmap(jacfwd)`` over single elements in the JAX
 package; they must agree to 1e-12 relative.  Newton solves through the host
-loop ("direct", "schur_direct", the Schur CG) and the fused dense loop agree
-to 1e-10 with equal iteration histories.
+loop ("direct", "schur_direct", "dense", the Schur CG) agree to 1e-10 with
+equal iteration histories.
 """
 
 import importlib
@@ -183,7 +183,7 @@ def _nonlinear_flow_newton(mf, linear_solver):
     ids=[
         "newton_direct",
         "newton_schur_direct",
-        "newton_dense_fused",
+        "newton_dense",
         "nonlinear_flow_picard",
         "nonlinear_flow_newton_schur",
     ],

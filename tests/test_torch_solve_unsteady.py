@@ -1,12 +1,13 @@
-"""The port's time marches and fused dense loops against the JAX package.
+"""The port's time marches and its dense linear solver against the JAX package.
 
 One parity case for each test of the JAX package's test_solve_unsteady.py, at
 small sizes.  Both packages run the same problem through their public
 ``solve_system_2d``; every solution each one reconstructs (the initial state
 and each sampled step) is captured, and the port's must agree with the JAX
 package's to 1e-10 relative, with equal ``time`` values, grid counts and
-per-step iteration histories.  The fused dense loops are also held against
-the port's own host loop.
+per-step iteration histories.  The port's ``"dense"`` solves run the same
+host loops as every other linear solver; they are held against the JAX
+package's device loops and against the port's ``"direct"``.
 """
 
 import importlib
@@ -94,13 +95,13 @@ def _check_parity(monkeypatch, build, iterations=True, **options):
     return mine
 
 
-def _check_fused(monkeypatch, build, **options):
-    """The dense solver's device loop against the JAX package's, and against
-    the port's host loop through SuperLU."""
-    fused = _check_parity(monkeypatch, build, linear_solver="dense", **options)
-    host = _run(tf, monkeypatch, build, linear_solver="direct", **options)
-    _assert_same(fused, host)
-    return fused
+def _check_dense(monkeypatch, build, **options):
+    """The dense solver's loop against the JAX package's, and against the
+    port's loop through SuperLU."""
+    dense = _check_parity(monkeypatch, build, linear_solver="dense", **options)
+    direct = _run(tf, monkeypatch, build, linear_solver="direct", **options)
+    _assert_same(dense, direct)
+    return dense
 
 
 def _heat(mf, nt=4, n=4, p=3):
@@ -209,8 +210,8 @@ def test_steady_navier_stokes(monkeypatch):
     assert 1 < int(tstats.iter_history[-1]) < 80
 
 
-def test_fused_linear_march_matches_host_loop(monkeypatch):
-    _check_fused(monkeypatch, _stationary_heat, n=3, p=3, nt=4, dt=0.05)
+def test_dense_linear_march_matches_direct(monkeypatch):
+    _check_dense(monkeypatch, _stationary_heat, n=3, p=3, nt=4, dt=0.05)
 
 
 def _ns_re5(mf, linear_solver, method="picard", re=5.0, p=3, atol=1e-9, max_iterations=15):
@@ -232,8 +233,8 @@ def _ns_re5(mf, linear_solver, method="picard", re=5.0, p=3, atol=1e-9, max_iter
     )
 
 
-def test_fused_picard_matches_host_loop(monkeypatch):
-    _, _, stats = _check_fused(monkeypatch, _ns_re5)
+def test_dense_picard_matches_direct(monkeypatch):
+    _, _, stats = _check_dense(monkeypatch, _ns_re5)
     assert int(stats.iter_history[-1]) > 1
 
 
@@ -281,20 +282,20 @@ def test_unsteady_bc_requires_time_settings():
         tf.solve_system_2d(mesh, tf.SystemSettings(system, boundary_conditions=[bc]), device="cpu")
 
 
-def test_fused_nonlinear_march_matches_host_loop(monkeypatch):
-    _, _, stats = _check_fused(monkeypatch, _navier_stokes, nt=4)
+def test_dense_nonlinear_march_matches_direct(monkeypatch):
+    _, _, stats = _check_dense(monkeypatch, _navier_stokes, nt=4)
     assert int(stats.iter_history[-1]) > 1
 
 
-def test_fused_newton_matches_host_newton(monkeypatch):
-    _, _, stats = _check_fused(
+def test_dense_newton_matches_direct(monkeypatch):
+    _, _, stats = _check_dense(
         monkeypatch, _ns_re5, method="newton", re=50.0, p=4, atol=1e-11, max_iterations=10
     )
     assert int(stats.iter_history[-1]) <= 5
 
 
-def test_fused_newton_march_matches_host(monkeypatch):
-    _, _, stats = _check_fused(
+def test_dense_newton_march_matches_direct(monkeypatch):
+    _, _, stats = _check_dense(
         monkeypatch, _navier_stokes, method="newton", nt=3, dt=0.1, max_iterations=15,
         atol=1e-10,
     )
@@ -392,13 +393,23 @@ def _reaction(mf, sample_rate=1, nt=4):
     )
 
 
-def test_fused_march_sampling_matches_dense_steps(monkeypatch):
+def test_dense_march_sampling_matches_every_step(monkeypatch):
     tsol, tgrids, _ = _check_parity(monkeypatch, _reaction, sample_rate=3)
     assert [float(g.field_data["time"][0]) for g in tgrids] == [0.0, 0.05, 0.2]
     full, full_grids, _ = _run(tf, monkeypatch, _reaction)
     by_time = {float(g.field_data["time"][0]): s for g, s in zip(full_grids, full)}
     for g, s in zip(tgrids, tsol):
         assert np.array_equal(s, by_time[float(g.field_data["time"][0])])
+
+
+@pytest.mark.parametrize("nt, sample_rate", [(1, 1), (4, 3), (9, 3), (16, 5), (7, 10)])
+def test_sampled_steps_are_every_sth_and_the_last(nt, sample_rate):
+    """The steps whose grids a march keeps: every ``sample_rate``-th and the last."""
+    from mfv2d_torch.solver.solve import sampled_time_steps
+
+    steps = sampled_time_steps(nt, sample_rate)
+    assert steps.dtype == np.int64
+    assert steps.tolist() == [i for i in range(nt) if i % sample_rate == 0 or i + 1 == nt]
 
 
 def _cavity(mf, anderson_m=0, linear_solver="dense"):
@@ -427,7 +438,7 @@ def _cavity(mf, anderson_m=0, linear_solver="dense"):
     )
 
 
-def test_fused_march_anderson_converges_same(monkeypatch):
+def test_dense_march_anderson_converges_same(monkeypatch):
     """Anderson's least-squares step amplifies round-off, so the packages'
     iterates part in the last digits on the way: the end point is held."""
     plain = _run(tf, monkeypatch, _cavity)
