@@ -376,20 +376,82 @@ def saddle_matrix(
 ) -> sp.csc_matrix:
     """The sparse saddle matrix ``[[A, G^T], [G, 0]]`` (CSC) for SuperLU:
     ``A`` block-diagonal over the leaves' element matrices, ``G`` the
-    constraint block (or no multipliers)."""
-    main_mat = sp.block_diag(element_matrices_per_leaf, format="csr")
-    if lagrange_mat is not None:
-        main_mat = sp.block_array(
-            ((main_mat, lagrange_mat.T), (lagrange_mat, None)), format="csr"
-        )
-    return sp.csc_matrix(main_mat)
+    constraint block (or no multipliers).
+
+    Its CSC arrays are written straight from the blocks' offsets, in
+    canonical form.  Column ``j`` of leaf ``e``'s range holds all ``n_e``
+    entries of that block's column (exact zeros too), then ``G``'s column
+    ``j``; column ``n + i`` holds ``G``'s row ``i``.  Every stored entry of
+    ``G`` is kept.  Leaves of one block size are written together.
+    """
+    blocks = element_matrices_per_leaf
+    sizes = np.array([b.shape[0] for b in blocks], np.int64)
+    dtypes = {b.dtype for b in blocks}
+    offsets = np.concatenate(([0], np.cumsum(sizes)))
+    # Each leaf's first entry in A's column-major values.
+    starts = np.concatenate(([0], np.cumsum(sizes * sizes)))
+    n, n_a = int(offsets[-1]), int(starts[-1])
+    if lagrange_mat is None:
+        g = sp.csr_array((0, n))
+    else:
+        g = sp.csr_array(lagrange_mat, copy=True)
+        g.sum_duplicates()
+        dtypes.add(g.dtype)
+    g_cols = g.tocsc()
+    m, n_g = g.shape[0], g.nnz
+    nnz = n_a + 2 * n_g
+    index = np.int32 if max(nnz, n + m) <= np.iinfo(np.int32).max else np.int64
+    dtype = np.result_type(*dtypes)
+
+    a_values = np.empty(n_a, dtype)
+    a_rows = np.empty(n_a, index)
+    for k in np.unique(sizes):
+        leaves = np.flatnonzero(sizes == k)
+        group = [blocks[e] for e in leaves]
+        rows = offsets[leaves, None, None] + np.arange(k)  # [leaf, 1, row]
+        if leaves[-1] - leaves[0] + 1 == leaves.size:
+            # Consecutive leaves: one slice of A's values, written as
+            # [leaf, column, row] from the [leaf, row, column] blocks.
+            at = slice(starts[leaves[0]], starts[leaves[-1] + 1])
+            np.stack(group, out=a_values[at].reshape(-1, k, k).transpose(0, 2, 1))
+            a_rows[at].reshape(-1, k, k)[...] = rows
+        else:
+            at = (starts[leaves, None] + np.arange(k * k)).ravel()
+            a_values[at] = np.stack(group).transpose(0, 2, 1).ravel()
+            a_rows[at] = np.broadcast_to(rows, (leaves.size, k, k)).ravel()
+
+    a_per_column = np.repeat(sizes, sizes)
+    g_per_column = np.diff(g_cols.indptr)
+    indptr = np.zeros(n + m + 1, index)
+    np.cumsum(
+        np.concatenate((a_per_column + g_per_column, np.diff(g.indptr))), out=indptr[1:]
+    )
+    data = np.empty(nnz, dtype)
+    indices = np.empty(nnz, index)
+    # G's column j goes after A's entries of column j: past the A entries
+    # of columns 0..j and the G entries before it.
+    head = n_a + n_g
+    at_g = np.repeat(np.cumsum(a_per_column), g_per_column) + np.arange(n_g)
+    is_a = np.ones(head, bool)
+    is_a[at_g] = False
+    data[at_g] = g_cols.data
+    indices[at_g] = n + g_cols.indices
+    data[:head][is_a] = a_values
+    indices[:head][is_a] = a_rows
+    data[head:] = g.data
+    indices[head:] = g.indices
+
+    mat = sp.csc_matrix((data, indices, indptr), shape=(n + m, n + m), copy=False)
+    mat.has_canonical_format = True
+    return mat
 
 
 class FrozenSaddleSolver:
     """LU factorization of [[A, G^T], [G, 0]] reused across iterations.
 
     A is block-diagonal over elements.  Host SciPy SuperLU.  Traced as
-    ``saddle-matrix`` (the sparse saddle matrix, to CSC) and ``superlu``.
+    ``saddle-matrix`` (the sparse saddle matrix in CSC, :func:`saddle_matrix`,
+    with its non-zeros counted as ``saddle_nonzeros``) and ``superlu``.
 
     On a CUDA ``device``, once the first solve (SuperLU's own) has taken at
     least :data:`CARD_MIN_HOST_SOLVE_S`, the second and later solves run the
@@ -408,6 +470,7 @@ class FrozenSaddleSolver:
     ) -> None:
         with tracer.stage("saddle-matrix"):
             main_mat = saddle_matrix(element_matrices_per_leaf, lagrange_mat)
+            tracer.count("saddle_nonzeros", main_mat.nnz)
         self.n_lagrange = 0 if lagrange_mat is None else lagrange_mat.shape[0]
         with tracer.stage("superlu"):
             self._decomp = sla.splu(main_mat)

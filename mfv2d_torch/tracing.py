@@ -35,7 +35,9 @@ While the tracer is on:
   ``frozen_solve_card`` (each solve of a
   :class:`mfv2d_torch.solver.solve.FrozenSaddleSolver` by SciPy's SuperLU or
   by the factors' sweeps on the card; the card's schedule is built once a
-  factorization inside the span ``frozen-solve-prepare``).
+  factorization inside the span ``frozen-solve-prepare``), and
+  ``saddle_nonzeros`` (the stored entries of each frozen saddle matrix,
+  counted inside its ``saddle-matrix`` span).
 
 :meth:`Tracer.reset` clears the totals, spans and counters.  Off, a stage
 or a count costs one attribute check.

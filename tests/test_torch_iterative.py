@@ -214,6 +214,100 @@ def test_sparse_saddle_matrix_is_the_dense_one(setup33, constrained):
     assert np.array_equal(sparse.toarray(), dense)
 
 
+def _reference_saddle(blocks, g) -> sp.csc_matrix:
+    """[[A, G^T], [G, 0]] as ``sp.block_diag`` and ``sp.block_array`` build it."""
+    mat = sp.block_diag(blocks, format="csr")
+    if g is not None:
+        mat = sp.block_array(((mat, g.T), (g, None)), format="csr")
+    mat = sp.csc_matrix(mat)
+    mat.sort_indices()
+    return mat
+
+
+def _port_saddle(mesh, system, bcs=(), constrained=()):
+    """The port's element matrices in leaf order and its constraint CSR."""
+    from mfv2d_torch.compiler import CompiledSystem as TCompiledSystem
+    from mfv2d_torch.solver.solve import SystemEvaluator as TSystemEvaluator
+    from mfv2d_torch.solver.solve import compute_linear_system as t_linear_system
+
+    disc = t_discretize(mesh, system.unknown_forms, TFemCache(3), device="cpu")
+    evaluator = TSystemEvaluator(system.unknown_forms, TCompiledSystem(system), disc)
+    _, matrices, g, _ = t_linear_system(disc, system, evaluator, list(constrained), list(bcs), None)
+    return evaluator.matrices_per_leaf(matrices), g
+
+
+def _saddle_poisson():
+    return _port_saddle(tf.examples.unit_square_mesh(3, 3, 3), tpoisson.mixed_poisson().system)
+
+
+def _saddle_poisson_without_multipliers():
+    blocks, _ = _saddle_poisson()
+    return blocks, None
+
+
+def _saddle_navier_stokes():
+    model = tflow.navier_stokes(10.0)
+    mesh = tf.examples.unit_square_mesh(3, 3, 3)
+    bc = tf.BoundaryCondition2DSteady(model.velocity, mesh.boundary_indices, tflow.ns_velocity_exact)
+    return _port_saddle(mesh, model.system, [bc], [(0.0, model.pressure)])
+
+
+def _saddle_hp():
+    """Leaves of five orders, whose block sizes interleave in leaf order, with
+    hanging-node continuity in G."""
+    mesh = tf.examples.unit_square_mesh(4, 4, 3)
+    mesh.split_element(5, (2, 2), (2, 3), (3, 2), (1, 1))
+    mesh.set_leaf_orders(0, 5, 4)
+    mesh.set_leaf_orders(10, 2, 2)
+    return _port_saddle(mesh, tpoisson.mixed_poisson().system)
+
+
+def _saddle_planted_zeros():
+    """Blocks with exact zeros planted (a whole block, rows, columns and
+    scattered entries) and explicit zeros stored in G."""
+    blocks, g = _saddle_poisson()
+    rng = np.random.default_rng(7)
+    blocks = [b.copy() for b in blocks]
+    blocks[0][:] = 0.0
+    blocks[1][2, :] = 0.0
+    blocks[2][:, 3] = 0.0
+    for b in blocks[3:]:
+        b[rng.random(b.shape) < 0.1] = 0.0
+    g = g.copy()
+    g.data[::5] = 0.0
+    return blocks, g
+
+
+SADDLES = {
+    "poisson": _saddle_poisson,
+    "poisson_without_multipliers": _saddle_poisson_without_multipliers,
+    "navier_stokes": _saddle_navier_stokes,
+    "hp_mixed_orders": _saddle_hp,
+    "planted_zeros": _saddle_planted_zeros,
+}
+
+
+@pytest.mark.parametrize("case", SADDLES)
+def test_saddle_matrix_is_the_block_build_bitwise(case):
+    """The CSC saddle build holds the arrays of the block_diag/block_array
+    build to the bit, in canonical form, every entry of the dense blocks
+    and every stored entry of G kept."""
+    from mfv2d_torch.solver.solve import saddle_matrix
+
+    blocks, g = SADDLES[case]()
+    sizes = [b.shape[0] for b in blocks]
+    # The hp mesh's sizes 33 and 16 come back after other sizes in leaf order.
+    assert len(set(sizes)) == (5 if case == "hp_mixed_orders" else 1)
+    mine = saddle_matrix(blocks, g)
+    ref = _reference_saddle(blocks, g)
+    assert mine.format == "csc" and mine.shape == ref.shape
+    assert mine.has_canonical_format
+    for name in ("indptr", "indices", "data"):
+        assert np.array_equal(getattr(mine, name), getattr(ref, name)), name
+    n_g = 0 if g is None else g.nnz
+    assert mine.nnz == sum(b.size for b in blocks) + 2 * n_g
+
+
 def test_unknown_iterative_method_raises():
     """As in the JAX package, full-system CG is not a selectable method."""
     _, tdisc, _, matrices, g, _ = _setup(2, 2)

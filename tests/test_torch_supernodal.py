@@ -285,6 +285,31 @@ def test_frozen_solver_on_the_cpu_is_superlu(monkeypatch):
     tracer.reset()
 
 
+def test_saddle_build_gives_superlu_the_block_build_factors():
+    """The CSC saddle build and the block_diag/block_array build of the heat
+    march's saddle factor to the same solution, bitwise, and a traced
+    factorization counts the matrix's non-zeros in its ``saddle-matrix``."""
+    import scipy.sparse as sp
+    import scipy.sparse.linalg as sla
+
+    blocks, g = saddle("heat")
+    ref = sp.csc_matrix(
+        sp.block_array(((sp.block_diag(blocks, format="csr"), g.T), (g, None)), format="csr")
+    )
+    ref.sort_indices()
+    mine = solve_module.saddle_matrix(blocks, g)
+    (b,) = right_sides(mine.shape[0], 1)
+    assert np.array_equal(sla.splu(mine).solve(b), sla.splu(ref).solve(b))
+    tracer.reset()
+    tracer.enable()
+    try:
+        FrozenSaddleSolver(blocks, g)
+    finally:
+        tracer.disable()
+    assert tracer.counters["saddle-matrix"] == {"saddle_nonzeros": mine.nnz}
+    tracer.reset()
+
+
 class _FakeCard:
     """Stands in for :class:`supernodal.CardSolve` on the CPU: SciPy's
     solve of the factorization the schedule stub names."""
