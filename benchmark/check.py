@@ -9,7 +9,14 @@ The numbers compared, each the worst over a run's solves:
 - ``points_gap``: the largest distance of a grid point from the reference's
   point (infinite where the number of points differs);
 - ``<field>_rms``: for each field of the configuration's reference, the RMS
-  of the program's error over the points, over the RMS of the exact field.
+  of the program's error over the points, over the RMS of the exact field;
+- ``<field>_max``: for each field the reference names in
+  ``MAGNITUDE_FIELDS``, whose exact value is zero to within the
+  configuration's discretization error (so a ratio to its RMS has no
+  meaning), the largest absolute value over the points.
+
+Each reads infinite where the field is absent, has another number of
+points than the reference or is not finite.
 """
 
 from __future__ import annotations
@@ -53,8 +60,10 @@ def reference_points(mesh: int, recon_order: int, amplitude: float, dtype=np.flo
     return np.stack((mapped(x), mapped(y)), axis=-1)
 
 
-def readings(answer: Answer, traffic: dict, exact: dict) -> dict[str, float]:
-    """The numbers compared for one solve, against the f64 reference."""
+def readings(answer: Answer, traffic: dict, exact: dict, magnitude=()) -> dict[str, float]:
+    """The numbers compared for one solve, against the f64 reference: the
+    fields of ``exact`` by their closed form, those named in ``magnitude``
+    by their size."""
     ref = reference_points(traffic["mesh"], traffic["recon_order"], answer.amplitude)
     points = np.asarray(answer.points)[:, :2]
     out = {"points_gap": np.inf}
@@ -69,6 +78,12 @@ def readings(answer: Answer, traffic: dict, exact: dict) -> dict[str, float]:
             err = np.asarray(got, np.float64) - want
             value = float(np.sqrt(np.mean(err**2)) / np.sqrt(np.mean(want**2)))
         out[f"{name}_rms"] = value if np.isfinite(value) else np.inf
+    for name in magnitude:
+        got = answer.fields.get(name)
+        value = np.inf
+        if got is not None and np.ndim(got) >= 1 and np.shape(got)[0] == len(ref):
+            value = float(np.abs(np.asarray(got, np.float64)).max())
+        out[f"{name}_max"] = value if np.isfinite(value) else np.inf
     return out
 
 
@@ -83,12 +98,15 @@ def judge(values: dict[str, float], limits: dict[str, float]) -> bool:
     return all(values.get(name, np.inf) <= limit for name, limit in limits.items())
 
 
-def control_answer(traffic: dict, amplitude: float, exact: dict) -> Answer:
+def control_answer(traffic: dict, amplitude: float, exact: dict, magnitude=()) -> Answer:
     """The control: the reference put in the program's place, computed in
-    float32, the precision below the configuration's float64."""
+    float32, the precision below the configuration's float64.  A field held
+    by magnitude is its exact value, float32 zeros: the control fails on the
+    closed-form fields."""
     points = reference_points(traffic["mesh"], traffic["recon_order"], amplitude, np.float32)
     x, y = points[:, 0], points[:, 1]
     fields = {name: np.asarray(field(x, y)) for name, field in exact.items()}
+    fields.update({name: np.zeros(len(points), np.float32) for name in magnitude})
     for name, values in fields.items():
         if values.dtype != np.float32:
             raise TypeError(f"the control's {name} came out in {values.dtype}, not float32")

@@ -22,10 +22,11 @@ from traffic import amplitudes  # noqa: E402
 
 
 def control_values(cell: manifest.Cell, seed: int, solves: int) -> dict:
-    exact = manifest.reference(cell).FIELDS
-    answers = [check.control_answer(cell.traffic, a, exact)
+    exact, magnitude = manifest.judged_fields(cell)
+    answers = [check.control_answer(cell.traffic, a, exact, magnitude)
                for a in islice(amplitudes(seed, cell.traffic), solves)]
-    return check.worst([check.readings(x, cell.traffic, exact) for x in answers], cell.limits)
+    return check.worst([check.readings(x, cell.traffic, exact, magnitude) for x in answers],
+                       cell.limits)
 
 
 def main(argv=None) -> int:

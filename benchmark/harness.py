@@ -143,8 +143,9 @@ def run_cell(cell: manifest.Cell, seed: int, seconds: float, trace: bool, device
     if cuda:
         torch.cuda.empty_cache()
 
-    exact = manifest.reference(cell).FIELDS
-    values = check.worst([check.readings(x, cell.traffic, exact) for x in answers], cell.limits)
+    exact, magnitude = manifest.judged_fields(cell)
+    values = check.worst([check.readings(x, cell.traffic, exact, magnitude) for x in answers],
+                         cell.limits)
     correct = failed == 0 and check.judge(values, cell.limits)
     print(
         f"{cell.name} seed {seed}: {solves} solves in {window_s:.4f} s of window,"

@@ -3,10 +3,12 @@
 A configuration is ``configs/<name>.json`` (its sizes and settings, the
 path the manifest gives), with ``configs/<name>.py`` beside it (the call
 into the program) and ``configs/<name>_reference.py`` (the closed-form
-solution, which imports nothing of the program).  A traffic mix is
-``traffic/<name>.json``; a cell's limits are ``workloads/<cell>.json``; a
-per-layer metric is read by ``metrics/<metric>.py``, whose ``read(run)``
-returns a number or None.  Adding any of them adds files and entries only.
+solution ``FIELDS`` and, where it names any, ``MAGNITUDE_FIELDS``: output
+fields whose exact value is zero; it imports nothing of the program).  A
+traffic mix is ``traffic/<name>.json``; a cell's limits are
+``workloads/<cell>.json``; a per-layer metric is read by
+``metrics/<metric>.py``, whose ``read(run)`` returns a number or None.
+Adding any of them adds files and entries only.
 """
 
 from __future__ import annotations
@@ -99,6 +101,13 @@ def reference(cell: Cell):
     """The configuration's closed-form solution (``FIELDS``)."""
     path = cell.config_path
     return load_module(path.with_name(f"{path.stem}_reference.py"))
+
+
+def judged_fields(cell: Cell) -> tuple[dict, tuple]:
+    """The fields ``check.readings`` holds a cell's answers to: those with a
+    closed form (name to function), and those held by magnitude (names)."""
+    module = reference(cell)
+    return module.FIELDS, tuple(getattr(module, "MAGNITUDE_FIELDS", ()))
 
 
 def reader(cell: Cell, metric: str):

@@ -1,7 +1,13 @@
 """The element inverse's share of its roofline: the least time to invert
-the cell's element blocks (mesh^2 blocks of n, the DoFs of the
-configuration's forms at the traffic's order), over the device time of
-kernels whose name holds ``gj_`` in one profiled warm solve."""
+the cell's element blocks over the device time of kernels whose name holds
+``gj_`` in one profiled warm solve.
+
+It counts one inversion a solve of mesh^2 blocks of n, the DoFs of the
+configuration's forms at the traffic's order: what ``"schur_direct"``
+does in a steady solve with one Picard factorization.  A cell whose solve
+inverts other blocks, or more sets of them (VMS inverts its Galerkin and
+fine blocks as well), would read low here: it brings a reader of its own
+and is not listed under this metric."""
 
 import roofline
 

@@ -8,6 +8,8 @@ import pytest
 BENCH = Path(__file__).resolve().parents[1]
 ROOT = BENCH.parent
 sys.path[:0] = [str(BENCH), str(ROOT)]
+# The manifest rules live outside the test files: show their values on a failure.
+pytest.register_assert_rewrite("manifest_rules")
 
 
 @pytest.fixture(autouse=True)
