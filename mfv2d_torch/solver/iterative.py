@@ -116,14 +116,17 @@ class BlockSaddleSystem:
         )
         self.blocks = [self._tensor(m) for m in element_matrices]
         # Explicit f64 inverses from the pivoted kernel; the probe picks the
-        # refinement rounds each apply runs (normally zero).
+        # refinement rounds each apply runs (normally zero).  The probe reads
+        # its error on the host, so the span closes once the inverses ran.
         self.inverses = []
         self._refine_rounds = []
-        for b in self.blocks:
-            inv = gj_inverse(b)
-            rounds, _ = choose_refine_rounds(b, inv)
-            self.inverses.append(inv)
-            self._refine_rounds.append(max(rounds, min_refine_rounds))
+        with tracer.stage("block-inverse"):
+            for b in self.blocks:
+                inv = gj_inverse(b)
+                rounds, _ = choose_refine_rounds(b, inv)
+                tracer.count("block_refine_rounds", rounds)
+                self.inverses.append(inv)
+                self._refine_rounds.append(max(rounds, min_refine_rounds))
         self.gathers = [to_device(b.gather, self.device) for b in disc.buckets]
         # Bucket gathers partition [0, n_dofs); the inverse permutation maps
         # each global DoF to its position in the bucket-concatenated flat
@@ -341,7 +344,8 @@ class BlockSaddleSystem:
     def schur_decomposition(self):
         """Cached host SuperLU factorization of the assembled Schur complement
         (traced: ``condense``, the sparse assembly, then ``superlu``, which
-        counts the column ordering it took, :func:`trace_column_ordering`)."""
+        counts the column ordering it took, :func:`trace_column_ordering`,
+        and the entries its factors store, SuperLU's ``nnz``)."""
         decomp = getattr(self, "_schur_decomp", None)
         if decomp is None:
             schur = sp.csc_matrix(self.assemble_schur_sparse())
@@ -351,6 +355,7 @@ class BlockSaddleSystem:
                     "superlu_min_degree" if permc_spec == "MMD_AT_PLUS_A" else "superlu_colamd"
                 )
                 decomp = sla.splu(schur, permc_spec=permc_spec)
+                tracer.count("trace_lu_nonzeros", decomp.nnz)
             self._schur_decomp = decomp
         return decomp
 

@@ -27,7 +27,14 @@ While the tracer is on:
   ``d2h_bytes`` (the explicit host-device copies, made through
   :mod:`mfv2d_torch.transfer`), ``superlu_min_degree`` and
   ``superlu_colamd`` (the trace Schur factorizations by the column ordering
-  each took, :func:`mfv2d_torch.solver.iterative.trace_column_ordering`),
+  each took, :func:`mfv2d_torch.solver.iterative.trace_column_ordering`)
+  and ``trace_lu_nonzeros`` (the entries SuperLU stores for each trace
+  factorization's L and U, its ``nnz``, supernodal padding included), all
+  counted inside that factorization's ``superlu`` span,
+  ``block_refine_rounds`` (the refinement rounds the probe chose for each
+  bucket of a :class:`mfv2d_torch.solver.iterative.BlockSaddleSystem`,
+  summed, counted inside the span ``block-inverse`` around its element
+  inverses: ``factorize/block-inverse`` in a steady solve),
   ``march_steps`` (one a step of a trapezoidal march on the host loop,
   counted inside its ``march-step`` span; the step's residuals, update
   solves and reconstruction sit under that span, and its carry projection

@@ -244,8 +244,9 @@ STEADY_PATHS = {
         "solve+reconstruct",
     },
     "schur_direct": {
-        "setup", "assembly+constraints", "factorize", "reconstruct", "picard-residual",
-        "picard-solve", "picard-solve/schur-factor", "picard-solve/schur-factor/condense",
+        "setup", "assembly+constraints", "factorize", "factorize/block-inverse", "reconstruct",
+        "picard-residual", "picard-solve", "picard-solve/schur-factor",
+        "picard-solve/schur-factor/condense",
         "picard-solve/schur-factor/superlu", "picard-solve/inv-apply",
         "picard-solve/trace-solve", "solve+reconstruct",
     },
